@@ -11,9 +11,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 2. Build the CUDA kernels from ``ortools_tpu_torch/ops/csrc`` and print
    what ``-Xptxas -v`` says of each (registers, shared memory, spills).
 3. Each kernel against its plain PyTorch version on the card: A (8x128)
-   and its transpose (128x8) at the bench shape, (32,128) and (128,128)
-   and their transposes at a smaller size, and an empty matrix; exact in
-   f32 and f64, fast (bf16) in f32; each run twice, bit-identical.
+   and its transpose (128x8) at the bench shape, every other block shape
+   the kernels take and its transpose at a smaller size, a skewed matrix
+   (one block-row of 96 blocks, a quarter of the rest with one block, the
+   others empty: both of the kernels' row variants in one launch) and an
+   empty matrix; exact in f32 and f64, fast (bf16) in f32; each run twice,
+   bit-identical.
 4. ``pdlp.solve`` on a moderate LP to OPTIMAL, held against HiGHS.
 5. The main path at full width: ``pdlp.solve`` on the bench LP
    (block_random_lp 16384 x 16384, 4096 blocks of 8x128, seed 0, f32,
@@ -21,7 +24,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    set to 0 just before and read just after.  Then PDHG iter/s of each
    stream (the solver's own majors), host syncs per major, peak device
    memory, and each kernel's time at the bench shape beside its bound, its
-   plain version and a PyTorch sparse CSR product.
+   plain version and a PyTorch sparse CSR product (L2-cold), with its
+   L2-warm time and, for the exact kernel, a block-sparse (BSR) product
+   beside them.
 6. The ``kernels`` line (JSON), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -167,7 +172,10 @@ def check_matrix(label: str, mat: BlockSparseMatrix, errs: dict) -> None:
     e64, s64 = _rel_err(d, ref64)
     ef, sf = _rel_err(f, fref)
     efx, sfx = _rel_err(f, ref)
-    print(f"{label:34s} exact f32 {e32:.3e} (<= {1e-5 * s32:.3e})"
+    print(f"{label:34s} long rows f32 {m32.tiled.num_long}/"
+          f"{m32.tiled.num_block_rows} split {m32.tiled.split}, f64 "
+          f"{m64.tiled.num_long} split {m64.tiled.split}:"
+          f" exact f32 {e32:.3e} (<= {1e-5 * s32:.3e})"
           f"  exact f64 {e64:.3e} (<= {1e-12 * s64:.3e})"
           f"  fast {ef:.3e} (<= {1e-5 * sf:.3e})"
           f"  fast-exact {efx:.3e} (<= {3e-2 * sfx:.3e})")
@@ -187,12 +195,36 @@ def check_matrix(label: str, mat: BlockSparseMatrix, errs: dict) -> None:
     errs["block_spmv_fast"] = max(errs.get("block_spmv_fast", 0.0), ef)
 
 
+# Every block shape besides the bench's, with the transposes: all nine
+# that the kernels take.  Blocks per 2048^2 matrix.
+SMALL_SHAPES = (((8, 8), 4096), ((8, 32), 1024), ((32, 8), 1024),
+                ((32, 32), 512), ((32, 128), 128), ((128, 128), 64))
+
+
+def skewed_matrix(seed: int = 3) -> BlockSparseMatrix:
+    """2048 x 16384 at 8x128: block-row 0 holds 96 blocks (a long row),
+    every fourth of the others one block (short rows), the rest none."""
+    rng = np.random.default_rng(seed)
+    bm, bn, gm, gn = 8, 128, 256, 128
+    brows = np.concatenate([np.zeros(96, np.int64), np.arange(1, gm, 4)])
+    bcols = np.concatenate([rng.choice(gn, 96, replace=False),
+                            rng.integers(0, gn, brows.size - 96)])
+    rows = (brows[:, None, None] * bm + np.arange(bm)[None, :, None]
+            + np.zeros(bn, np.int64)[None, None, :]).ravel()
+    cols = (bcols[:, None, None] * bn + np.zeros(bm, np.int64)[None, :, None]
+            + np.arange(bn)[None, None, :]).ravel()
+    a = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(gm * bm, gn * bn))
+    return BlockSparseMatrix.from_scipy(a, block_shape=(bm, bn),
+                                        dtype=torch.float64, device="cuda")
+
+
 def kernels_against_plain(bench_prob) -> dict:
     errs: dict = {}
     for name, mat in (("A", bench_prob.a), ("A^T", bench_prob.at)):
         bm, bn = mat.block_shape
         check_matrix(f"bench {name} ({bm}x{bn})", mat.without_tiled(), errs)
-    for block_shape, nb in (((32, 128), 128), ((128, 128), 64)):
+    for block_shape, nb in SMALL_SHAPES:
         qp = block_random_lp(2048, 2048, nb, block_shape, seed=1)
         mat = BlockSparseMatrix.from_scipy(
             qp.constraint_matrix, block_shape=block_shape,
@@ -200,6 +232,12 @@ def kernels_against_plain(bench_prob) -> dict:
         bm, bn = block_shape
         check_matrix(f"2048^2 A ({bm}x{bn})", mat, errs)
         check_matrix(f"2048^2 A^T ({bn}x{bm})", mat.block_transpose(), errs)
+    skewed = skewed_matrix()
+    lay = dataclasses.replace(skewed, data=skewed.data.float()).with_tiled()
+    require(lay.tiled.num_long == 1 and lay.tiled.split == 8,
+            "skewed: the f32 schedule should hold one long row, split 8 ways")
+    check_matrix("skewed 2048x16384 (8x128)", skewed, errs)
+    check_matrix("skewed^T (128x8)", skewed.block_transpose(), errs)
     empty = BlockSparseMatrix.from_scipy(sp.csr_matrix((50, 60)),
                                          device="cuda")
     check_matrix("empty 50x60 (8x128)", empty, errs)
@@ -406,6 +444,32 @@ def _csr_copies(mat: BlockSparseMatrix, copies: int) -> list:
                 for _ in range(copies)]
 
 
+def _bsr_product(mat: BlockSparseMatrix, x: torch.Tensor):
+    """The exact product as a torch block-sparse (BSR) tensor with the
+    layout's own blocks (a second library yardstick; the port never calls
+    it): returns (a callable, None), or (None, why torch refuses it)."""
+    lay = mat.tiled
+    try:
+        bsr = torch.sparse_bsr_tensor(
+            lay.row_ptr.long(), lay.block_cols.long(), lay.data.float(),
+            size=mat.padded_shape)
+    except (RuntimeError, ValueError, TypeError) as e:
+        return None, f"sparse_bsr_tensor: {e}"
+    why = []
+    for fn in (lambda v: bsr @ v, lambda v: (bsr @ v[:, None])[:, 0]):
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="Sparse")
+                fn(x)
+                torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError,
+                NotImplementedError) as e:
+            why.append(str(e).splitlines()[0][:160])
+            continue
+        return fn, None
+    return None, " / ".join(why)
+
+
 def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
     """Least time for one product: each input read once, y written once,
     over the card's memory rate, against 2 flops per stored entry over the
@@ -436,29 +500,39 @@ def kernel_times(prob) -> dict:
                   for _ in range(copies)]
         x = _x_for(mat, torch.float32, 2)
         csrs = _csr_copies(mat, copies)
+        bsr, bsr_why = _bsr_product(mat, x)
+        print(f"{orient} layout: {lay.num_long} long rows split "
+              f"{lay.split} ways, {lay.num_block_rows - lay.num_long} short")
         for name, spec in KERNELS.items():
             fast = name == "block_spmv_fast"
             args = [(t, x) for t in lays32]
             ms = time_launches(spec["wrapper"], args, 400)
+            warm_ms = time_launches(spec["wrapper"], args[:1], 400)
             plain_ms = time_launches(spec["plain"], args, 100)
             if fast:
                 # No PyTorch call multiplies bf16 blocks by a bf16-rounded
                 # x into an f32 result.
-                library_ms = None
+                library_ms = bsr_ms = None
             else:
                 library_ms = time_launches(lambda a, v: a @ v,
                                            [(c, x) for c in csrs], 200)
+                bsr_ms = (time_launches(bsr, [(x,)], 200)
+                          if bsr is not None else None)
             bound_ms, bound_by, nbytes = kernel_bound_ms(
                 mat, 2 if fast else 4)
             lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            bsr_txt = ("" if fast else f", BSR (L2-warm) {bsr_ms:.4f} ms"
+                       if bsr_ms is not None else f", BSR refused: {bsr_why}")
             print(f"{name:17s} {orient:3s} {mat.block_shape}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (CSR) "
-                  f"{lib}, bound {bound_ms:.4f} ms ({nbytes} bytes, "
-                  f"{bound_by}); kernel at {bound_ms / ms:.1%} of bound")
-            out[(name, orient)] = dict(ms=ms, plain_ms=plain_ms,
-                                       library_ms=library_ms,
+                  f"{ms:.4f} ms (L2-warm {warm_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library (CSR) {lib}{bsr_txt}, bound "
+                  f"{bound_ms:.4f} ms ({nbytes} bytes, {bound_by}); kernel "
+                  f"at {bound_ms / ms:.1%} of bound")
+            out[(name, orient)] = dict(ms=ms, warm_ms=warm_ms,
+                                       plain_ms=plain_ms,
+                                       library_ms=library_ms, bsr_ms=bsr_ms,
                                        bound_ms=bound_ms, bound_by=bound_by)
-        del lays32, csrs
+        del lays32, csrs, bsr
     return out
 
 
@@ -516,7 +590,8 @@ def main() -> int:
             replaces=spec["replaces"], launches=launches[name],
             max_abs_err=errs[name], ms=a["ms"], plain_ms=a["plain_ms"],
             bound_ms=a["bound_ms"], bound_by=a["bound_by"],
-            library_ms=a["library_ms"], transpose=at, ok=True))
+            library_ms=a["library_ms"], warm_ms=a["warm_ms"],
+            bsr_ms=a["bsr_ms"], transpose=at, ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,138 +1,537 @@
 // Block-row SpMV kernels of the PDLP solve: y = A x, with A stored as dense
 // (bm x bn) blocks in block-row CSR order (blocks sorted by (row, col),
 // row_ptr[r] .. row_ptr[r+1] are the blocks of block-row r, block_cols
-// gives each block's column, data is [num_blocks, bm, bn] row-major).
+// gives each block's column, data is [num_blocks, bm, bn] row-major, so the
+// blocks of one block-row are one contiguous run of memory).
 //
-// block_spmv_exact<T> (T = float, double) replaces
-//   ortools_tpu/ops/tiled_spmv.py::_spmv_tiled_kernel (the exact f32 stream)
-//   and, on the card, the XLA block path ortools_tpu/ops/block_sparse.py::
-//   _block_matvec (f64 solves).
-// block_spmv_fast replaces
-//   ortools_tpu/ops/tiled_spmv.py::_spmv_tiled_fast_kernel: bf16 matrix
-//   copy, x rounded to bf16 (round to nearest), products and sums in f32.
-//   The TPU kernel also rounds each block's partial sums to bf16 before its
-//   scatter; that is an artifact of its MXU scatter and is not copied.
+// What each function replaces:
+// - block_spmv_exact<T> (T = float, double) replaces
+//   ortools_tpu/ops/tiled_spmv.py::_spmv_tiled_kernel (the exact f32
+//   stream) and, on the card, the XLA block path ortools_tpu/ops/
+//   block_sparse.py::_block_matvec (f64 solves).
+// - block_spmv_fast replaces ortools_tpu/ops/tiled_spmv.py::
+//   _spmv_tiled_fast_kernel: bf16 matrix copy, x rounded to bf16 (round to
+//   nearest even), products and sums in f32.  The TPU kernel also rounds
+//   each block's partial sums to bf16 before its scatter; that is an
+//   artifact of its MXU scatter and is not copied.
 //
-// Bound on an H100 (3.35 TB/s): the matrix bytes, each read once.  At the
-// bench shape (16384^2, 4096 blocks of 8x128) the exact kernel moves
-// 16.78 MB of f32 blocks plus 64 KB of x, 64 KB of y and ~25 KB of indices
-// (about 5.1 us); the fast kernel moves 8.39 MB of bf16 blocks plus the
-// same vectors (about 2.6 us).  The arithmetic (2 flops per stored entry)
-// is two orders of magnitude below the card's rate.
+// Bound on an H100 SXM (3.35 TB/s at 700 W): the matrix bytes, each read
+// once.  At the bench shape (16384^2, 4096 blocks of 8x128, and its
+// transpose, 4096 blocks of 128x8) the exact kernel moves 16.78 MB of f32
+// blocks plus 64 KB of x, 64 KB of y and ~25 KB of indices (about 5.1 us);
+// the fast kernel moves 8.39 MB of bf16 blocks plus the same vectors (about
+// 2.6 us).  The work is 2 flops per stored entry: 0.5 flop per byte in f32
+// and 1 in bf16, two orders of magnitude below the ridge point of the f32
+// cores and further below that of the tensor cores.  So no tensor cores:
+// the design is about bytes in flight.
 //
-// Design against that bound: one thread block per block-row, so every y
-// entry is written once by one thread and the sum needs no atomics (y is
-// bit-identical from run to run).  128 threads share one (bm x bn) block:
-// thread t owns row t / (128/bm) of the block and strides over its columns,
-// so neighbouring threads read neighbouring addresses of the block and the
-// x segment (cached, read-only).  A block-row with many blocks (the
-// transpose's tall (128 x bn) rows) is split over up to 8 such groups,
-// each taking every groups-th block; their partial sums meet in shared
-// memory in a fixed order.  No TMA or tensor cores: the matrix is streamed
-// once and each entry is used once, so the kernel can only approach the
-// bytes bound by keeping enough loads in flight.
+// The design, against the four faults of the first (scalar) version:
+// 1. Scalar loads.  Every load is 16 bytes: a float4 of f32, a double2 of
+//    f64, or eight bf16 in a uint4.  Lane l of a team reads chunk l,
+//    l + team, ... of the row's contiguous run of blocks, so neighbouring
+//    lanes read neighbouring 16-byte chunks.  Since bn is a power of two
+//    that divides (or is divided by) the team, a thread's column chunk
+//    inside every block is fixed (t % chunks-per-block-row).
+// 2. x re-read per row.  A thread loads the x chunk its columns need once
+//    per block (for the fast kernel: rounded to bf16 once) and reuses it
+//    for every row of the block it covers.
+// 3. Short rows.  make_layout (tiled_spmv.py) sorts the block-rows into a
+//    schedule: long rows first, then short ones, each longest first.  A
+//    short row (blocks of at most 4 KB, at most 16 KB in all) goes to one
+//    warp, eight per thread block, so bench A (2048 rows of ~2 blocks) is
+//    256 thread blocks: one wave.  Each lane issues up to 16 loads across
+//    the row's blocks before it uses any of them.  The bm row sums leave
+//    the lanes by a fixed xor butterfly.
+// 4. Tall rows.  A long row is split into `split` contiguous segments
+//    (split <= 8, chosen in make_layout so that about 512 thread blocks
+//    are busy: bench A^T's 128 rows give 512), one thread block of 256
+//    threads each, launched as one thread-block cluster per row.  Each
+//    streams its segment through a ring of 4 stages of 8 KB in shared
+//    memory, filled by 1-D bulk asynchronous copies (cp.async.bulk)
+//    completing on an mbarrier, up to 32 KB in flight per thread block.
+//    The segments' row sums meet in rank 0's thread block through the
+//    cluster's distributed shared memory, in rank order.
+//
+// Deterministic output: every y entry is written by one thread, each
+// thread sums its chunks in stream order, and the sums meet in a fixed
+// order (butterfly, then shared memory, then cluster rank), so repeated
+// launches are bit-identical.  No floating-point atomics.  Both variants
+// run in one launch: the first num_long * split thread blocks take the long
+// rows, the rest take the short rows eight at a time.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kGroupThreads = 128;  // threads that share one block
-constexpr int kMaxGroups = 8;
+#ifndef OTT_THREADS
+#define OTT_THREADS 256
+#endif
+#ifndef OTT_SHORT_LOADS
+#define OTT_SHORT_LOADS 16
+#endif
+#ifndef OTT_LONG_REGS
+#define OTT_LONG_REGS 0
+#endif
+#ifndef OTT_LONG_LOADS
+#define OTT_LONG_LOADS 8
+#endif
+constexpr int kThreads = OTT_THREADS;     // threads of a thread block
+constexpr int kWarps = kThreads / 32;     // short rows per thread block
+constexpr int kShortLoads = OTT_SHORT_LOADS;  // 16-byte loads per lane
+constexpr int kLongLoads = OTT_LONG_LOADS;
+constexpr int kWarpBlockChunks = 256;     // largest block a warp takes (4 KB)
+constexpr int kStages = 4;                // ring stages of a long row
+constexpr int kStageBytes = 8192;
+constexpr int kStageChunks = kStageBytes / 16;
+constexpr int kMaxSplit = 8;              // portable cluster size
+constexpr int kRingOffset = 128;          // mbarriers first, then the ring
+constexpr int kPartials = kThreads > 256 ? kThreads : 256;  // row partials
 
-template <typename T>
-__device__ __forceinline__ T to_acc(T v) { return v; }
+// ---------------------------------------------------------------------------
+// The three instantiations: what a 16-byte chunk holds and how x is read.
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct ExactF32 {
+  using Vec = float;
+  static constexpr int V = 4;  // values per 16-byte chunk
+  static __device__ __forceinline__ void load_x(const float* p, float (&v)[V]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+  static __device__ __forceinline__ float dot(uint4 a, const float (&v)[V],
+                                              float acc) {
+    acc = fmaf(__uint_as_float(a.x), v[0], acc);
+    acc = fmaf(__uint_as_float(a.y), v[1], acc);
+    acc = fmaf(__uint_as_float(a.z), v[2], acc);
+    return fmaf(__uint_as_float(a.w), v[3], acc);
+  }
+};
+
+struct ExactF64 {
+  using Vec = double;
+  static constexpr int V = 2;
+  static __device__ __forceinline__ void load_x(const double* p,
+                                                double (&v)[V]) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  }
+  static __device__ __forceinline__ double dot(uint4 a, const double (&v)[V],
+                                               double acc) {
+    acc = fma(__hiloint2double(static_cast<int>(a.y), static_cast<int>(a.x)),
+              v[0], acc);
+    return fma(__hiloint2double(static_cast<int>(a.w), static_cast<int>(a.z)),
+               v[1], acc);
+  }
+};
+
+struct FastBf16 {
+  using Vec = float;
+  static constexpr int V = 8;
+  // x rounded to bf16 (nearest even) once per block and held as f32.
+  static __device__ __forceinline__ void load_x(const float* p, float (&v)[V]) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    const float w[V] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      v[e] = __bfloat162float(__float2bfloat16_rn(w[e]));
+    }
+  }
+  // bf16 2e is the low half of word e; widening to f32 is exact.
+  static __device__ __forceinline__ float dot(uint4 a, const float (&v)[V],
+                                              float acc) {
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc = fmaf(__uint_as_float(w[e] << 16), v[2 * e], acc);
+      acc = fmaf(__uint_as_float(w[e] & 0xffff0000u), v[2 * e + 1], acc);
+    }
+    return acc;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// PTX helpers
+// ---------------------------------------------------------------------------
+
+// Volatile, so that the compiler keeps it where it stands (ahead of the
+// first use, never sunk into a branch); callers issue it unconditionally.
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  // Read once: keep it out of L1, where x lives.
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-// x as the kernel multiplies it: as stored (exact), or rounded to bf16 to
-// nearest and widened back to f32 (fast).
-template <bool kRoundX, typename T>
-__device__ __forceinline__ T load_x(const T* p) {
-  T v = __ldg(p);
-  if constexpr (kRoundX) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One thread: expect `bytes` on `bar` and copy them from global memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Short rows: one warp per block-row.
+// ---------------------------------------------------------------------------
+
+template <class Tr, int BM, int BN>
+__device__ __forceinline__ void short_row(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ block_cols,
+    const uint4* __restrict__ data, const typename Tr::Vec* __restrict__ x,
+    typename Tr::Vec* __restrict__ y, int r, int lane) {
+  using Vec = typename Tr::Vec;
+  constexpr int V = Tr::V;
+  constexpr int RC = BN / V;                 // chunks per block row
+  constexpr int C = BM * RC;                 // chunks per block
+  constexpr int KPB = C > 32 ? C / 32 : 1;   // chunks of one block per lane
+  constexpr int P = C < 32 ? C : 32;         // lanes on distinct chunks
+  constexpr int U = kShortLoads;
+  static_assert(RC <= 32 && C <= kWarpBlockChunks && U % KPB == 0, "shape");
+
+  const int begin = __ldg(row_ptr + r);
+  const int total = (__ldg(row_ptr + r + 1) - begin) * C;
+  const uint4* base = data + static_cast<size_t>(begin) * C;
+  Vec acc[KPB];
+#pragma unroll
+  for (int k = 0; k < KPB; ++k) acc[k] = Vec(0);
+
+  // Lane chunk g = g0 + lane + 32 i lies in block g / C at position
+  // (lane % P) + 32 (i % KPB): row (lane % P) / RC + (32 / RC) (i % KPB),
+  // column chunk lane % RC.  Chunks past the row's end load its last chunk
+  // and count as zeros: no load or product sits under a branch, so all of
+  // them are in flight before the first product.
+  const int last = total - 1;
+  for (int g0 = 0; g0 < total; g0 += 32 * U) {
+    uint4 a[U];
+    Vec xv[U / KPB][V];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      a[i] = ld_stream(base + min(g0 + lane + 32 * i, last));
+    }
+#pragma unroll
+    for (int j = 0; j < U / KPB; ++j) {
+      const int g = min(g0 + lane + 32 * j * KPB, last);
+      const int col = __ldg(block_cols + begin + g / C);
+      Tr::load_x(x + static_cast<size_t>(col) * BN + (lane % RC) * V, xv[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (g0 + lane + 32 * i >= total) a[i] = make_uint4(0, 0, 0, 0);
+      acc[i % KPB] = Tr::dot(a[i], xv[i / KPB], acc[i % KPB]);
+    }
+  }
+  // Butterfly: first over the lanes on other blocks (P < 32), then over the
+  // RC lanes of one row.
+#pragma unroll
+  for (int k = 0; k < KPB; ++k) {
+#pragma unroll
+    for (int off = 16; off >= P; off >>= 1) {
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+    }
+#pragma unroll
+    for (int off = RC / 2; off > 0; off >>= 1) {
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+    }
+  }
+  if (lane < P && lane % RC == 0) {
+    Vec* yr = y + static_cast<size_t>(r) * BM + lane / RC;
+#pragma unroll
+    for (int k = 0; k < KPB; ++k) yr[(32 / RC) * k] = acc[k];
   }
 }
 
-template <typename DataT, typename VecT, bool kRoundX, int BM, int BN>
-__global__ void __launch_bounds__(kGroupThreads * kMaxGroups)
-block_spmv_kernel(const int32_t* __restrict__ row_ptr,
-                  const int32_t* __restrict__ block_cols,
-                  const DataT* __restrict__ data,
-                  const VecT* __restrict__ x, VecT* __restrict__ y) {
-  static_assert(BM <= kGroupThreads && kGroupThreads % BM == 0, "bm");
-  constexpr int S = kGroupThreads / BM;  // threads per block row
-  static_assert(S <= 32, "the threads of one row must share a warp");
-  constexpr int kCols = (BN + S - 1) / S;  // columns per thread per block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  VecT* partial = reinterpret_cast<VecT*>(smem_raw);  // [groups][BM]
+// ---------------------------------------------------------------------------
+// Long rows: one thread block per segment, a cluster per row.
+// ---------------------------------------------------------------------------
 
-  const int groups = blockDim.x / kGroupThreads;
-  const int g = threadIdx.x / kGroupThreads;
-  const int t = threadIdx.x % kGroupThreads;
-  const int i = t / S;  // row inside the block
-  const int s = t % S;  // first column of this thread
-  const int r = blockIdx.x;
+template <class Tr>
+constexpr size_t long_smem_bytes() {
+  return kRingOffset + (OTT_LONG_REGS ? 0 : static_cast<size_t>(kStages) * kStageBytes) +
+         (kPartials + 128) * sizeof(typename Tr::Vec);
+}
+
+template <class Tr, int BM, int BN>
+__device__ __forceinline__ void long_row(
+    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ block_cols,
+    const uint4* __restrict__ data, const typename Tr::Vec* __restrict__ x,
+    typename Tr::Vec* __restrict__ y, int r, int rank, int split,
+    unsigned char* smem) {
+  using Vec = typename Tr::Vec;
+  constexpr int V = Tr::V;
+  constexpr int W = kThreads;
+  constexpr int RC = BN / V;                  // chunks per block row
+  constexpr int C = BM * RC;                  // chunks per block
+  constexpr int SC = OTT_LONG_REGS ? W * kLongLoads : kStageChunks;
+  constexpr int CPS = SC / W;                 // chunks per thread per stage
+  constexpr int KPB = C > W ? C / W : 1;      // accumulators per thread
+  constexpr int G = C > SC ? C / SC : 1;      // stages per block
+  constexpr int NX = G * CPS / KPB;           // x chunks per G stages
+  constexpr int RL = RC < 32 ? RC : 32;       // lanes of a row in one warp
+  static_assert(NX >= 1 && (C > W ? C : W) / RL <= kPartials, "shape");
+
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint4* ring = reinterpret_cast<uint4*>(smem + kRingOffset);
+  Vec* part = reinterpret_cast<Vec*>(
+      smem + kRingOffset + (OTT_LONG_REGS ? 0 : kStages * kStageBytes));
+  Vec* rowsum = part + kPartials;
+  const int t = threadIdx.x;
+
   const int begin = __ldg(row_ptr + r);
-  const int end = __ldg(row_ptr + r + 1);
-
-  VecT acc = VecT(0);
-  for (int b = begin + g; b < end; b += groups) {
-    const int col = __ldg(block_cols + b);
-    const DataT* blk = data + static_cast<size_t>(b) * (BM * BN) + i * BN;
-    const VecT* xs = x + static_cast<size_t>(col) * BN;
+  const long long len = __ldg(row_ptr + r + 1) - begin;
+  const int b0 = begin + static_cast<int>(len * rank / split);
+  const int b1 = begin + static_cast<int>(len * (rank + 1) / split);
+  const int chunks = (b1 - b0) * C;
+  const int stages = (chunks + SC - 1) / SC;
+  const uint4* src = data + static_cast<size_t>(b0) * C;
+  auto issue = [&](int s) {
+    const int n = min(SC, chunks - s * SC);
+    bulk_load(ring + (s % kStages) * SC, src + static_cast<size_t>(s) * SC,
+              static_cast<uint32_t>(n) * 16, bar + s % kStages);
+  };
+#if !OTT_LONG_REGS
+  if (t == 0) {
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) {
-      const int j = s + jj * S;
-      if (BN % S == 0 || j < BN) {
-        acc += to_acc(__ldg(blk + j)) * load_x<kRoundX>(xs + j);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    for (int s = 0; s < min(kStages, stages); ++s) issue(s);
+  }
+#endif
+
+  // Thread chunk g = s SC + t + W i of the segment lies in block g / C at
+  // position t + W c (mod C), c = piece CPS + i: accumulator c % KPB, x chunk
+  // c / KPB, column chunk t % RC.  The x chunks of the G stages from s0 are
+  // loaded one group ahead of their use (a chunk past the segment's end
+  // loads the x of its last block, unused).
+  auto load_xs = [&](int s0, Vec (&xs)[NX][V]) {
+#pragma unroll
+    for (int piece = 0; piece < G; ++piece) {
+#pragma unroll
+      for (int i = 0; i < CPS; ++i) {
+        const int c = piece * CPS + i;
+        if (c % KPB == 0) {
+          const int g = min((s0 + piece) * SC + t + W * i, chunks - 1);
+          const int col = __ldg(block_cols + b0 + g / C);
+          Tr::load_x(x + static_cast<size_t>(col) * BN + (t % RC) * V,
+                     xs[c / KPB]);
+        }
+      }
+    }
+  };
+  Vec acc[KPB];
+#pragma unroll
+  for (int k = 0; k < KPB; ++k) acc[k] = Vec(0);
+  Vec xv[NX][V], xn[NX][V];
+#if OTT_LONG_REGS
+  auto load_round = [&](int s, uint4 (&a)[CPS]) {
+#pragma unroll
+    for (int i = 0; i < CPS; ++i) {
+      a[i] = ld_stream(src + min(s * SC + t + W * i, chunks - 1));
+    }
+  };
+  uint4 a[CPS], an[CPS];
+  if (stages > 0) {
+    load_round(0, a);
+    load_xs(0, xv);
+  }
+  for (int s0 = 0; s0 < stages; s0 += G) {
+    if (s0 + G < stages) load_xs(s0 + G, xn);
+#pragma unroll
+    for (int piece = 0; piece < G; ++piece) {
+      const int s = s0 + piece;
+      if (s + 1 < stages) load_round(s + 1, an);
+#pragma unroll
+      for (int i = 0; i < CPS; ++i) {
+        const int c = piece * CPS + i;
+        if (s * SC + t + W * i >= chunks) a[i] = make_uint4(0, 0, 0, 0);
+        acc[c % KPB] = Tr::dot(a[i], xv[c / KPB], acc[c % KPB]);
+      }
+#pragma unroll
+      for (int i = 0; i < CPS; ++i) a[i] = an[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NX; ++n) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) xv[n][e] = xn[n][e];
+    }
+  }
+#else
+  if (stages > 0) load_xs(0, xv);
+  for (int s0 = 0; s0 < stages; s0 += G) {
+    if (s0 + G < stages) load_xs(s0 + G, xn);
+#pragma unroll
+    for (int piece = 0; piece < G; ++piece) {
+      const int s = s0 + piece;
+      mbar_wait(bar + s % kStages, (s / kStages) & 1);
+      const uint4* stage = ring + (s % kStages) * SC;
+#pragma unroll
+      for (int i = 0; i < CPS; ++i) {
+        const int c = piece * CPS + i;
+        if (s * SC + t + W * i < chunks) {
+          acc[c % KPB] = Tr::dot(stage[t + W * i], xv[c / KPB], acc[c % KPB]);
+        }
+      }
+      __syncthreads();  // every thread is done with this slot
+      if (t == 0 && s + kStages < stages) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        issue(s + kStages);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NX; ++n) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) xv[n][e] = xn[n][e];
+    }
+  }
+#endif
+
+  // Row sums: butterfly over the RL lanes of a row, then partial q =
+  // (t + W k) / RL in shared memory; row i sums, in order, the partials
+  // j (C / RL) + i (RC / RL) + e for the W / C block offsets j and the
+  // RC / RL warps e of a row.
+#pragma unroll
+  for (int k = 0; k < KPB; ++k) {
+#pragma unroll
+    for (int off = RL / 2; off > 0; off >>= 1) {
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+    }
+    if (t % RL == 0) part[(t + W * k) / RL] = acc[k];
+  }
+  __syncthreads();
+  constexpr int JB = C < W ? W / C : 1;
+  Vec sum = Vec(0);
+  if (t < BM) {
+#pragma unroll
+    for (int j = 0; j < JB; ++j) {
+#pragma unroll
+      for (int e = 0; e < RC / RL; ++e) {
+        sum += part[j * (C / RL) + t * (RC / RL) + e];
       }
     }
   }
-  // Sum the S threads of row i (an aligned run of lanes in one warp); the
-  // butterfly gives lane s == 0 the same order of additions every run.
-#pragma unroll
-  for (int off = S / 2; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (groups == 1) {
-    if (s == 0) y[static_cast<size_t>(r) * BM + i] = acc;
+  Vec* yr = y + static_cast<size_t>(r) * BM;
+  if (split == 1) {
+    if (t < BM) yr[t] = sum;
     return;
   }
-  if (s == 0) partial[g * BM + i] = acc;
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    VecT sum = partial[threadIdx.x];
-    for (int k = 1; k < groups; ++k) sum += partial[k * BM + threadIdx.x];
-    y[static_cast<size_t>(r) * BM + threadIdx.x] = sum;
+  if (t < BM) rowsum[t] = sum;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0 && t < BM) {
+    Vec total = sum;
+    for (int q = 1; q < split; ++q) total += cluster.map_shared_rank(rowsum, q)[t];
+    yr[t] = total;
+  }
+  cluster.sync();  // the other ranks' shared memory lives until rank 0 read it
+}
+
+template <class Tr, int BM, int BN>
+__global__ void __launch_bounds__(kThreads)
+block_spmv_kernel(const int32_t* __restrict__ row_ptr,
+                  const int32_t* __restrict__ block_cols,
+                  const int32_t* __restrict__ schedule,
+                  const uint4* __restrict__ data,
+                  const typename Tr::Vec* __restrict__ x,
+                  typename Tr::Vec* __restrict__ y, int num_long, int split,
+                  int num_short) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int long_blocks = num_long * split;
+  const int b = blockIdx.x;
+  if (b < long_blocks) {
+    long_row<Tr, BM, BN>(row_ptr, block_cols, data, x, y,
+                         __ldg(schedule + b / split), b % split, split, smem);
+    return;
+  }
+  constexpr int C = BM * (BN / Tr::V);
+  if constexpr (C <= kWarpBlockChunks) {
+    const int i = (b - long_blocks) * kWarps + threadIdx.x / 32;
+    if (i < num_short) {
+      short_row<Tr, BM, BN>(row_ptr, block_cols, data, x, y,
+                            __ldg(schedule + num_long + i), threadIdx.x % 32);
+    }
   }
 }
 
-template <typename DataT, typename VecT, bool kRoundX>
+template <class Tr>
 int launch(const int32_t* row_ptr, const int32_t* block_cols,
-           const DataT* data, const VecT* x, VecT* y, int num_block_rows,
-           int bm, int bn, int groups, int device, cudaStream_t stream) {
-  if (groups < 1 || groups > kMaxGroups || num_block_rows < 0) {
+           const int32_t* schedule, const void* data,
+           const typename Tr::Vec* x, typename Tr::Vec* y, int num_block_rows,
+           int num_long, int split, int bm, int bn, int device,
+           cudaStream_t stream) {
+  if (num_block_rows < 0 || num_long < 0 || num_long > num_block_rows ||
+      split < 1 || split > kMaxSplit || (split & (split - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
   if (num_block_rows == 0) return 0;
   // This library's CUDA runtime keeps its own current device: launch on
   // the card that holds the tensors.
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(num_block_rows);
-  const dim3 block(kGroupThreads * groups);
-  const size_t smem = static_cast<size_t>(groups) * bm * sizeof(VecT);
-#define OTT_BLOCK_SPMV_CASE(BM_, BN_)                                       \
-  if (bm == BM_ && bn == BN_) {                                             \
-    block_spmv_kernel<DataT, VecT, kRoundX, BM_, BN_>                       \
-        <<<grid, block, smem, stream>>>(row_ptr, block_cols, data, x, y);   \
-    return static_cast<int>(cudaGetLastError());                            \
+  const int num_short = num_block_rows - num_long;
+  const int short_blocks =
+      ((num_short + kWarps - 1) / kWarps + split - 1) / split * split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(num_long * split + short_blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = num_long > 0 ? long_smem_bytes<Tr>() : 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const uint4* blocks = static_cast<const uint4*>(data);
+#define OTT_BLOCK_SPMV_CASE(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_) {                                              \
+    if (num_short > 0 && BM_ * (BN_ / Tr::V) > kWarpBlockChunks) {           \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    }                                                                        \
+    return static_cast<int>(cudaLaunchKernelEx(                              \
+        &cfg, block_spmv_kernel<Tr, BM_, BN_>, row_ptr, block_cols,          \
+        schedule, blocks, x, y, num_long, split, num_short));                \
   }
   OTT_BLOCK_SPMV_CASE(8, 8)
   OTT_BLOCK_SPMV_CASE(8, 32)
@@ -149,36 +548,40 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  Each returns cudaGetLastError()
-// after the launch: 0 when the kernel was launched.
+// Plain C interface (loaded with ctypes).  Each returns the launch's CUDA
+// error: 0 when the kernel was launched.  data and x must be 16-byte
+// aligned; the schedule is make_layout's (num_long long rows, then the
+// short ones).
 extern "C" {
 
 int block_spmv_exact_f32(const int32_t* row_ptr, const int32_t* block_cols,
-                         const float* data, const float* x, float* y,
-                         int num_block_rows, int bm, int bn, int groups,
-                         int device, void* stream) {
-  return launch<float, float, false>(row_ptr, block_cols, data, x, y,
-                                     num_block_rows, bm, bn, groups, device,
-                                     static_cast<cudaStream_t>(stream));
+                         const int32_t* schedule, const float* data,
+                         const float* x, float* y, int num_block_rows,
+                         int num_long, int split, int bm, int bn, int device,
+                         void* stream) {
+  return launch<ExactF32>(row_ptr, block_cols, schedule, data, x, y,
+                          num_block_rows, num_long, split, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int block_spmv_exact_f64(const int32_t* row_ptr, const int32_t* block_cols,
-                         const double* data, const double* x, double* y,
-                         int num_block_rows, int bm, int bn, int groups,
-                         int device, void* stream) {
-  return launch<double, double, false>(row_ptr, block_cols, data, x, y,
-                                       num_block_rows, bm, bn, groups, device,
-                                       static_cast<cudaStream_t>(stream));
+                         const int32_t* schedule, const double* data,
+                         const double* x, double* y, int num_block_rows,
+                         int num_long, int split, int bm, int bn, int device,
+                         void* stream) {
+  return launch<ExactF64>(row_ptr, block_cols, schedule, data, x, y,
+                          num_block_rows, num_long, split, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int block_spmv_fast_bf16(const int32_t* row_ptr, const int32_t* block_cols,
-                         const void* data, const float* x, float* y,
-                         int num_block_rows, int bm, int bn, int groups,
-                         int device, void* stream) {
-  return launch<__nv_bfloat16, float, true>(
-      row_ptr, block_cols, static_cast<const __nv_bfloat16*>(data), x, y,
-      num_block_rows, bm, bn, groups, device,
-      static_cast<cudaStream_t>(stream));
+                         const int32_t* schedule, const void* data,
+                         const float* x, float* y, int num_block_rows,
+                         int num_long, int split, int bm, int bn, int device,
+                         void* stream) {
+  return launch<FastBf16>(row_ptr, block_cols, schedule, data, x, y,
+                          num_block_rows, num_long, split, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

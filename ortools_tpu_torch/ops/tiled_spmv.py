@@ -10,7 +10,11 @@ and adds a block-row CSR index over them (``BlockRowLayout``):
 - ``row_ptr`` of length ``M/bm + 1``: the blocks of block-row ``r`` are
   ``row_ptr[r] .. row_ptr[r+1]``;
 - ``block_cols`` and ``data [nb, bm, bn]`` as the matrix stores them, plus
-  an optional bf16 copy of ``data`` for the fast stream.
+  an optional bf16 copy of ``data`` for the fast stream;
+- ``schedule``, the order in which the kernels take the block-rows: the
+  long rows first, then the short ones, each longest first
+  (``row_schedule``).  A short row goes to one warp, a long one to
+  ``split`` thread blocks of one cluster.
 
 ``tiled_matvec`` launches ``block_spmv_exact`` (``csrc/block_spmv.cu``)
 on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``.
@@ -30,7 +34,16 @@ import torch
 
 # Block dims the CUDA kernels are instantiated for (csrc/block_spmv.cu).
 KERNEL_BLOCK_DIMS = (8, 32, 128)
-_MAX_GROUPS = 8
+# A block-row goes to one warp when its blocks are at most WARP_BLOCK_BYTES
+# each (the kernel's limit: 16 loads of 16 bytes per lane) and at most
+# WARP_ROW_BYTES in all (two rounds of loads); otherwise it is long.
+WARP_BLOCK_BYTES = 4096
+WARP_ROW_BYTES = 16384
+# A long row is split over up to MAX_SPLIT thread blocks (one cluster) until
+# the long rows fill about LONG_BLOCKS_TARGET thread blocks (four on each SM
+# of a 132-SM H100); a segment keeps at least two blocks of the row.
+MAX_SPLIT = 8
+LONG_BLOCKS_TARGET = 512
 
 
 class BlockRowLayout(NamedTuple):
@@ -42,7 +55,9 @@ class BlockRowLayout(NamedTuple):
     block_cols: torch.Tensor  # int32 [nb]
     data: torch.Tensor  # [nb, bm, bn]
     data_hi: Optional[torch.Tensor]  # bf16 [nb, bm, bn]: the fast stream
-    groups: int  # 128-thread groups sharing one block-row in the kernel
+    schedule: torch.Tensor  # int32 [num_block_rows]: long rows, then short
+    num_long: int  # the first num_long rows of the schedule are long
+    split: int  # thread blocks (one cluster) per long row
     num_block_cols: int  # x has num_block_cols * bn entries
 
     @property
@@ -60,30 +75,53 @@ def block_row_order(block_rows: np.ndarray,
     return np.lexsort((block_cols, block_rows))
 
 
+def row_schedule(counts: np.ndarray, block_bytes: int):
+    """The kernels' order of the block-rows, from their lengths in blocks
+    (``counts``) and the bytes of one block: returns ``(schedule, num_long,
+    split)``.  A row is long when a warp should not take it (see
+    ``WARP_BLOCK_BYTES``, ``WARP_ROW_BYTES``); long rows come first, then
+    short ones, each longest first (a stable sort, so the schedule is a
+    function of ``counts``).  ``split`` doubles while the long rows fill
+    fewer than ``LONG_BLOCKS_TARGET`` thread blocks and the longest row
+    still gives each of its segments two blocks."""
+    counts = np.asarray(counts, dtype=np.int64)
+    long_rows = ((counts * block_bytes > WARP_ROW_BYTES)
+                 | (block_bytes > WARP_BLOCK_BYTES))
+    order = np.lexsort((-counts, ~long_rows))
+    num_long = int(long_rows.sum())
+    longest = int(counts[long_rows].max()) if num_long else 0
+    split = 1
+    while (split < MAX_SPLIT and num_long * split < LONG_BLOCKS_TARGET
+           and 4 * split <= longest):
+        split *= 2
+    return order.astype(np.int32), num_long, split
+
+
 def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
                 block_cols: torch.Tensor, padded_shape, hi: bool = False,
                 ) -> BlockRowLayout:
     """Layout over blocks already sorted by (row, col); with ``hi`` also
     the bf16 copy of the blocks (round to nearest even, as the TPU
-    module's ``with_hi``)."""
+    module's ``with_hi``).  The schedule is worked out for ``data``'s
+    element size; the bf16 copy's blocks are half as large, so it holds
+    for them too."""
     bm, bn = int(data.shape[1]), int(data.shape[2])
     num_block_rows = padded_shape[0] // bm
     rows = block_rows.detach().cpu().numpy().astype(np.int64)
-    nb = int(rows.shape[0])
     counts = np.bincount(rows, minlength=num_block_rows)
     row_ptr = np.zeros(num_block_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=row_ptr[1:])
-    per_row = -(-nb // max(1, num_block_rows))
-    groups = 1
-    while groups < min(per_row, _MAX_GROUPS):
-        groups *= 2
+    schedule, num_long, split = row_schedule(
+        counts, bm * bn * data.element_size())
     return BlockRowLayout(
         row_ptr=torch.as_tensor(row_ptr, device=data.device),
         block_rows=block_rows,
         block_cols=block_cols,
         data=data,
         data_hi=data.to(torch.bfloat16) if hi else None,
-        groups=groups,
+        schedule=torch.as_tensor(schedule, device=data.device),
+        num_long=num_long,
+        split=split,
         num_block_cols=padded_shape[1] // bn,
     )
 
@@ -140,13 +178,18 @@ def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"x must be the padded length-{t.num_block_cols * bn}"
                          f" vector, got shape {tuple(x.shape)}")
     for name, v in (("x", x), ("data", data), ("row_ptr", t.row_ptr),
-                    ("block_cols", t.block_cols)):
+                    ("block_cols", t.block_cols), ("schedule", t.schedule)):
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if t.row_ptr.dtype != torch.int32 or t.block_cols.dtype != torch.int32:
-        raise TypeError("row_ptr and block_cols must be int32")
+    if any(v.dtype != torch.int32
+           for v in (t.row_ptr, t.block_cols, t.schedule)):
+        raise TypeError("row_ptr, block_cols and schedule must be int32")
+    for name, v in (("x", x), ("data", data)):
+        if v.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             f"read it in 16-byte chunks)")
 
 
 def _launch(fn, t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
@@ -155,10 +198,11 @@ def _launch(fn, t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(ctypes.c_void_p(t.row_ptr.data_ptr()),
              ctypes.c_void_p(t.block_cols.data_ptr()),
+             ctypes.c_void_p(t.schedule.data_ptr()),
              ctypes.c_void_p(data.data_ptr()),
              ctypes.c_void_p(x.data_ptr()),
              ctypes.c_void_p(y.data_ptr()),
-             t.num_block_rows, bm, bn, t.groups, x.device.index,
+             t.num_block_rows, t.num_long, t.split, bm, bn, x.device.index,
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -24,18 +24,34 @@ def cuda():
     return torch.device("cuda")
 
 
+# With the transposes, every block shape the kernels take; "skewed" is one
+# block-row of 96 blocks (a long row, split over a cluster), a quarter of
+# the others with one block (short rows) and the rest empty.
 GPU_SHAPES = [
     (2048, 2048, 256, (8, 128)),
     (2048, 2048, 128, (32, 128)),
     (2048, 2048, 64, (128, 128)),
+    (2048, 2048, 4096, (8, 8)),
+    (2048, 2048, 1024, (8, 32)),
+    (2048, 2048, 1024, (32, 8)),
+    (2048, 2048, 512, (32, 32)),
+    (2048, 16384, "skewed", (8, 128)),
 ]
 
 
+def _cells(rng, gm, gn, nblocks):
+    if nblocks != "skewed":
+        return rng.choice(gm * gn, size=nblocks, replace=False)
+    rows = np.arange(1, gm, 4)
+    return np.concatenate([rng.choice(gn, 96, replace=False),
+                           rows * gn + rng.integers(0, gn, rows.size)])
+
+
 def _gpu_pair(m, n, nblocks, block_shape, dtype, device):
-    rng = np.random.default_rng(m + nblocks)
+    rng = np.random.default_rng(m + (nblocks if nblocks != "skewed" else 1))
     bm, bn = block_shape
     gm, gn = m // bm, n // bn
-    cells = rng.choice(gm * gn, size=nblocks, replace=False)
+    cells = _cells(rng, gm, gn, nblocks)
     rows = (cells // gn)[:, None, None] * bm + np.arange(bm)[None, :, None]
     cols = (cells % gn)[:, None, None] * bn + np.arange(bn)[None, None, :]
     rows, cols = np.broadcast_arrays(rows, cols)
@@ -110,3 +126,16 @@ def test_f64_solve_on_card_uses_the_exact_kernel(cuda):
               PdhgParams(dtype=torch.float64))
     assert r.termination_reason == TerminationReason.OPTIMAL
     assert T.tiled_matvec.launches > 0 and T.tiled_matvec_fast.launches == 0
+
+
+@pytest.mark.gpu
+def test_misaligned_input_raises_on_card(cuda):
+    mat = _gpu_pair(2048, 2048, 256, (8, 128), torch.float32, cuda)
+    mat = mat.with_tiled(hi=True)
+    n = mat.padded_shape[1]
+    x = torch.ones(n + 1, device=cuda)[1:]  # 4 bytes past an aligned start
+    for fn in (T.tiled_matvec, T.tiled_matvec_fast):
+        before = fn.launches
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(mat.tiled, x)
+        assert fn.launches == before

@@ -125,3 +125,80 @@ def test_launch_counters_untouched_on_cpu():
     T.tiled_matvec(tm.tiled, x)
     T.tiled_matvec_fast(tm.tiled, x)
     assert (T.tiled_matvec.launches, T.tiled_matvec_fast.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The kernels' row schedule (make_layout)
+# ---------------------------------------------------------------------------
+
+
+def _row_lengths(lay):
+    return np.diff(lay.row_ptr.numpy())
+
+
+@pytest.mark.parametrize("m,n,density,block_shape", TILED_CASES)
+def test_layout_schedule_covers_every_row_once(m, n, density, block_shape):
+    a, jm, _, tm = _make(m, n, density, block_shape, seed=m + n)
+    lay = tm.tiled
+    sched = lay.schedule.numpy()
+    assert lay.schedule.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(sched),
+                                  np.arange(lay.num_block_rows))
+    # row_ptr counts the blocks the JAX package stores in each block-row
+    bm = block_shape[0]
+    jrows = np.asarray(jm.block_rows)[:jm.num_real_blocks]
+    np.testing.assert_array_equal(
+        _row_lengths(lay),
+        np.bincount(jrows, minlength=jm.padded_shape[0] // bm))
+    # long rows first, then short ones, each longest first
+    lengths = _row_lengths(lay)[sched]
+    block_bytes = bm * block_shape[1] * 4
+    long_rows = lengths * block_bytes > T.WARP_ROW_BYTES
+    assert long_rows[:lay.num_long].all()
+    assert not long_rows[lay.num_long:].any()
+    assert np.all(np.diff(lengths[:lay.num_long]) <= 0)
+    assert np.all(np.diff(lengths[lay.num_long:]) <= 0)
+
+
+@pytest.mark.parametrize("counts,block_bytes,schedule,num_long,split", [
+    # 4 KB blocks: a row of 5+ blocks (over 16 KB) is long; ties keep order
+    ([0, 1, 96, 3, 5, 0, 4], 4096, [2, 4, 6, 3, 1, 0, 5], 2, 8),
+    # blocks over 4 KB are too large for a warp: every row is long
+    ([0, 1, 96, 3], 8192, [2, 3, 1, 0], 4, 8),
+    # no long row: nothing to split
+    ([2, 0, 2, 1], 4096, [0, 2, 3, 1], 0, 1),
+    # one long row of 6 blocks: segments keep two blocks or more
+    ([6, 1], 4096, [0, 1], 1, 2),
+])
+def test_row_schedule_assigns_rows_by_length(counts, block_bytes, schedule,
+                                             num_long, split):
+    got = T.row_schedule(np.array(counts), block_bytes)
+    np.testing.assert_array_equal(got[0], schedule)
+    assert got[1:] == (num_long, split)
+
+
+def test_row_schedule_of_the_bench_lp():
+    # block_random_lp(16384, 16384, 4096, (8, 128), seed=0) draws its block
+    # cells first: A has 2048 block-rows, its transpose 128.
+    cells = np.random.default_rng(0).choice(2048 * 128, size=4096,
+                                            replace=False)
+    counts_a = np.bincount(cells // 128, minlength=2048)
+    counts_at = np.bincount(cells % 128, minlength=128)
+    sched, num_long, split = T.row_schedule(counts_at, 128 * 8 * 4)
+    assert (num_long, split) == (128, 4)  # 512 thread blocks
+    sched, num_long, split = T.row_schedule(counts_a, 8 * 128 * 4)
+    assert num_long == int((counts_a >= 5).sum()) and 0 < num_long < 200
+    assert counts_a[sched[num_long:]].max() == 4
+    # the bf16 copy's blocks are half as large: the f32 schedule fits them
+    assert counts_a[sched[num_long:]].max() * 8 * 128 * 2 <= T.WARP_ROW_BYTES
+
+
+def test_make_layout_is_deterministic():
+    a, _, _, tm = _make(1000, 700, 0.005, (8, 128), seed=1700)
+    again = TMatrix.from_scipy(a, block_shape=(8, 128), dtype=torch.float32,
+                               device="cpu").with_tiled(hi=True)
+    for name in ("row_ptr", "schedule", "block_cols", "data", "data_hi"):
+        assert torch.equal(getattr(tm.tiled, name),
+                           getattr(again.tiled, name)), name
+    assert (tm.tiled.num_long, tm.tiled.split) == (again.tiled.num_long,
+                                                   again.tiled.split)
