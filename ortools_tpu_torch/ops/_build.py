@@ -79,9 +79,9 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path()))
         for name in _FUNCTIONS:
             fn = getattr(lib, name)
-            # row_ptr, block_cols, schedule, data, x, y; num_block_rows,
-            # num_long, split, bm, bn, device; stream
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            # schedule, block_cols, data, x, y; num_block_rows, num_long,
+            # split, bm, bn, device; stream
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib

@@ -67,29 +67,19 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef OTT_THREADS
-#define OTT_THREADS 256
-#endif
 #ifndef OTT_SHORT_LOADS
-#define OTT_SHORT_LOADS 16
-#endif
-#ifndef OTT_LONG_REGS
-#define OTT_LONG_REGS 0
+#define OTT_SHORT_LOADS 8
 #endif
 #ifndef OTT_LONG_LOADS
 #define OTT_LONG_LOADS 8
 #endif
-constexpr int kThreads = OTT_THREADS;     // threads of a thread block
+constexpr int kThreads = 256;             // threads of a thread block
 constexpr int kWarps = kThreads / 32;     // short rows per thread block
-constexpr int kShortLoads = OTT_SHORT_LOADS;  // 16-byte loads per lane
-constexpr int kLongLoads = OTT_LONG_LOADS;
+constexpr int kShortLoads = OTT_SHORT_LOADS;  // per lane per round, short
+constexpr int kLongLoads = OTT_LONG_LOADS;    // per thread per round, long
 constexpr int kWarpBlockChunks = 256;     // largest block a warp takes (4 KB)
-constexpr int kStages = 4;                // ring stages of a long row
-constexpr int kStageBytes = 8192;
-constexpr int kStageChunks = kStageBytes / 16;
 constexpr int kMaxSplit = 8;              // portable cluster size
-constexpr int kRingOffset = 128;          // mbarriers first, then the ring
-constexpr int kPartials = kThreads > 256 ? kThreads : 256;  // row partials
+constexpr int kPartials = kWarps * 128;  // row partials of a thread block
 
 // ---------------------------------------------------------------------------
 // The three instantiations: what a 16-byte chunk holds and how x is read.
@@ -155,7 +145,7 @@ struct FastBf16 {
 };
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// Loads
 // ---------------------------------------------------------------------------
 
 // Volatile, so that the compiler keeps it where it stands (ahead of the
@@ -164,46 +154,135 @@ __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
   // Read once: keep it out of L1, where x lives.
   uint4 v;
   asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
   return v;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// One schedule entry: block-row, its first block, its end block, unused.
+__device__ __forceinline__ int4 load_task(const int4* schedule, int i) {
+  return __ldg(schedule + i);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
+// A team of W threads streams the contiguous chunks [0, total) of a run of
+// blocks that starts at block `first`: thread t takes chunks t + W i.  In
+// rounds of L chunks per thread, each round's loads (and the x chunks they
+// need) are issued before the previous round is used (register double
+// buffering).  Chunk t + W c of a round lies at position (t % min(C, W)) +
+// W (c % KPB) of its block: accumulator c % KPB, x chunk c / KPB, column
+// chunk t % RC.  A chunk past the end loads the last chunk and the x of the
+// last block and counts as zero, so no load sits under a branch.
+template <class Tr, int BM, int BN, int W, int L>
+struct Stream {
+  using Vec = typename Tr::Vec;
+  static constexpr int V = Tr::V;
+  static constexpr int RC = BN / V;             // chunks per block row
+  static constexpr int C = BM * RC;             // chunks per block
+  static constexpr int R = W * L;               // chunks per round
+  static constexpr int KPB = C > W ? C / W : 1;  // accumulators
+  static constexpr int G = C > R ? C / R : 1;    // rounds per block
+  static constexpr int NX = G * L / KPB;          // x chunks per G rounds
+  static_assert(RC <= W && NX >= 1, "shape");
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n\t"
-      "LAB_WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
-      "@P1 bra DONE;\n\t"
-      "bra LAB_WAIT;\n\t"
-      "DONE:\n\t}" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
+  static __device__ __forceinline__ void run(
+      const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
+      const Vec* __restrict__ x, int first, int total, int t,
+      Vec (&acc)[KPB]) {
+    const uint4* src = data + static_cast<size_t>(first) * C;
+    const int last = total - 1;
+    const int rounds = (total + R - 1) / R;
+    auto load_round = [&](int s, uint4 (&a)[L]) {
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        a[i] = ld_stream(src + min(s * R + t + W * i, last));
+      }
+    };
+    auto load_xs = [&](int s0, Vec (&xs)[NX][V]) {
+#pragma unroll
+      for (int piece = 0; piece < G; ++piece) {
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const int c = piece * L + i;
+          if (c % KPB == 0) {
+            const int g = min((s0 + piece) * R + t + W * i, last);
+            const int col = __ldg(block_cols + first + g / C);
+            Tr::load_x(x + static_cast<size_t>(col) * BN + (t % RC) * V,
+                       xs[c / KPB]);
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < KPB; ++k) acc[k] = Vec(0);
+    if (rounds == 0) return;
+    uint4 a[L], an[L];
+    Vec xv[NX][V], xn[NX][V];
+    load_round(0, a);
+    load_xs(0, xv);
+    for (int s0 = 0; s0 < rounds; s0 += G) {
+      if (s0 + G < rounds) load_xs(s0 + G, xn);
+#pragma unroll
+      for (int piece = 0; piece < G; ++piece) {
+        const int s = s0 + piece;
+        if (s + 1 < rounds) load_round(s + 1, an);
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const int c = piece * L + i;
+          if (s * R + t + W * i > last) a[i] = make_uint4(0, 0, 0, 0);
+          acc[c % KPB] = Tr::dot(a[i], xv[c / KPB], acc[c % KPB]);
+        }
+#pragma unroll
+        for (int i = 0; i < L; ++i) a[i] = an[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NX; ++n) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) xv[n][e] = xn[n][e];
+      }
+    }
+  }
+};
 
-// One thread: expect `bytes` on `bar` and copy them from global memory.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+// ---------------------------------------------------------------------------
+// One warp over a run of blocks of at most 4 KB
+// ---------------------------------------------------------------------------
+
+// The warp's row sums of blocks [first, first + count): afterwards lane
+// (lane < P, lane % RC == 0) holds rows lane / RC + (32 / RC) k in acc[k].
+// The partial sums leave the lanes by a fixed xor butterfly: first over the
+// lanes on other blocks (P < 32), then over the RC lanes of one row.
+template <class Tr, int BM, int BN>
+struct WarpRows {
+  using S = Stream<Tr, BM, BN, 32, kShortLoads>;
+  using Vec = typename Tr::Vec;
+  static constexpr int RC = S::RC, C = S::C, KPB = S::KPB;
+  static constexpr int P = C < 32 ? C : 32;  // lanes on distinct chunks
+  static_assert(C <= kWarpBlockChunks && S::G == 1, "shape");
+
+  static __device__ __forceinline__ void run(
+      const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
+      const Vec* __restrict__ x, int first, int count, int lane,
+      Vec (&acc)[KPB]) {
+    S::run(block_cols, data, x, first, count * C, lane, acc);
+#pragma unroll
+    for (int k = 0; k < KPB; ++k) {
+#pragma unroll
+      for (int off = 16; off >= P; off >>= 1) {
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      }
+#pragma unroll
+      for (int off = RC / 2; off > 0; off >>= 1) {
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      }
+    }
+  }
+  static __device__ __forceinline__ bool holds(int lane) {
+    return lane < P && lane % RC == 0;
+  }
+  static __device__ __forceinline__ int row(int lane, int k) {
+    return lane / RC + (32 / RC) * k;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // Short rows: one warp per block-row.
@@ -211,252 +290,116 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 template <class Tr, int BM, int BN>
 __device__ __forceinline__ void short_row(
-    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ block_cols,
-    const uint4* __restrict__ data, const typename Tr::Vec* __restrict__ x,
-    typename Tr::Vec* __restrict__ y, int r, int lane) {
-  using Vec = typename Tr::Vec;
-  constexpr int V = Tr::V;
-  constexpr int RC = BN / V;                 // chunks per block row
-  constexpr int C = BM * RC;                 // chunks per block
-  constexpr int KPB = C > 32 ? C / 32 : 1;   // chunks of one block per lane
-  constexpr int P = C < 32 ? C : 32;         // lanes on distinct chunks
-  constexpr int U = kShortLoads;
-  static_assert(RC <= 32 && C <= kWarpBlockChunks && U % KPB == 0, "shape");
-
-  const int begin = __ldg(row_ptr + r);
-  const int total = (__ldg(row_ptr + r + 1) - begin) * C;
-  const uint4* base = data + static_cast<size_t>(begin) * C;
-  Vec acc[KPB];
+    const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
+    const typename Tr::Vec* __restrict__ x, typename Tr::Vec* __restrict__ y,
+    int4 task, int lane) {
+  using WR = WarpRows<Tr, BM, BN>;
+  typename Tr::Vec acc[WR::KPB];
+  WR::run(block_cols, data, x, task.y, task.z - task.y, lane, acc);
+  if (WR::holds(lane)) {
+    typename Tr::Vec* yr = y + static_cast<size_t>(task.x) * BM;
 #pragma unroll
-  for (int k = 0; k < KPB; ++k) acc[k] = Vec(0);
-
-  // Lane chunk g = g0 + lane + 32 i lies in block g / C at position
-  // (lane % P) + 32 (i % KPB): row (lane % P) / RC + (32 / RC) (i % KPB),
-  // column chunk lane % RC.  Chunks past the row's end load its last chunk
-  // and count as zeros: no load or product sits under a branch, so all of
-  // them are in flight before the first product.
-  const int last = total - 1;
-  for (int g0 = 0; g0 < total; g0 += 32 * U) {
-    uint4 a[U];
-    Vec xv[U / KPB][V];
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      a[i] = ld_stream(base + min(g0 + lane + 32 * i, last));
-    }
-#pragma unroll
-    for (int j = 0; j < U / KPB; ++j) {
-      const int g = min(g0 + lane + 32 * j * KPB, last);
-      const int col = __ldg(block_cols + begin + g / C);
-      Tr::load_x(x + static_cast<size_t>(col) * BN + (lane % RC) * V, xv[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      if (g0 + lane + 32 * i >= total) a[i] = make_uint4(0, 0, 0, 0);
-      acc[i % KPB] = Tr::dot(a[i], xv[i / KPB], acc[i % KPB]);
-    }
-  }
-  // Butterfly: first over the lanes on other blocks (P < 32), then over the
-  // RC lanes of one row.
-#pragma unroll
-  for (int k = 0; k < KPB; ++k) {
-#pragma unroll
-    for (int off = 16; off >= P; off >>= 1) {
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-    }
-#pragma unroll
-    for (int off = RC / 2; off > 0; off >>= 1) {
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-    }
-  }
-  if (lane < P && lane % RC == 0) {
-    Vec* yr = y + static_cast<size_t>(r) * BM + lane / RC;
-#pragma unroll
-    for (int k = 0; k < KPB; ++k) yr[(32 / RC) * k] = acc[k];
+    for (int k = 0; k < WR::KPB; ++k) yr[WR::row(lane, k)] = acc[k];
   }
 }
 
 // ---------------------------------------------------------------------------
-// Long rows: one thread block per segment, a cluster per row.
+// Long rows: one thread block per segment, one cluster per row.
 // ---------------------------------------------------------------------------
 
-template <class Tr>
-constexpr size_t long_smem_bytes() {
-  return kRingOffset + (OTT_LONG_REGS ? 0 : static_cast<size_t>(kStages) * kStageBytes) +
-         (kPartials + 128) * sizeof(typename Tr::Vec);
+// The thread block's row sums of blocks [b0, b1), left in thread t < BM.
+// Blocks of at most 4 KB: the segment is cut into kWarps contiguous runs,
+// one per warp (so that a lane reuses its x chunk for KPB rows of a block),
+// and the warps' sums meet in shared memory in warp order.  Larger blocks:
+// the thread block streams the segment as one team (Stream, W = kThreads),
+// and partial q = (t + W k) / RL of a butterfly over the RL lanes of a row
+// goes to shared memory; row i sums, in order, the partials j (C / RL) +
+// i (RC / RL) + e for the W / C block offsets j and the RC / RL warps e of
+// a row.
+template <class Tr, int BM, int BN>
+__device__ __forceinline__ typename Tr::Vec segment_sum(
+    const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
+    const typename Tr::Vec* __restrict__ x, int b0, int b1,
+    typename Tr::Vec* part) {
+  using Vec = typename Tr::Vec;
+  constexpr int W = kThreads, RC = BN / Tr::V, C = BM * RC;
+  const int t = threadIdx.x;
+  Vec sum = Vec(0);
+  if constexpr (C <= kWarpBlockChunks) {
+    using WR = WarpRows<Tr, BM, BN>;
+    const int w = t / 32, lane = t % 32;
+    const long long len = b1 - b0;
+    const int first = b0 + static_cast<int>(len * w / kWarps);
+    const int end = b0 + static_cast<int>(len * (w + 1) / kWarps);
+    Vec acc[WR::KPB];
+    WR::run(block_cols, data, x, first, end - first, lane, acc);
+    if (WR::holds(lane)) {
+#pragma unroll
+      for (int k = 0; k < WR::KPB; ++k) part[w * BM + WR::row(lane, k)] = acc[k];
+    }
+    __syncthreads();
+    if (t < BM) {
+#pragma unroll
+      for (int j = 0; j < kWarps; ++j) sum += part[j * BM + t];
+    }
+  } else {
+    using S = Stream<Tr, BM, BN, W, kLongLoads>;
+    constexpr int KPB = S::KPB;
+    constexpr int RL = RC < 32 ? RC : 32;  // lanes of a row in one warp
+    static_assert((C > W ? C : W) / RL <= kPartials, "shape");
+    Vec acc[KPB];
+    S::run(block_cols, data, x, b0, (b1 - b0) * C, t, acc);
+#pragma unroll
+    for (int k = 0; k < KPB; ++k) {
+#pragma unroll
+      for (int off = RL / 2; off > 0; off >>= 1) {
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+      }
+      if (t % RL == 0) part[(t + W * k) / RL] = acc[k];
+    }
+    __syncthreads();
+    constexpr int JB = C < W ? W / C : 1;
+    if (t < BM) {
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+#pragma unroll
+        for (int e = 0; e < RC / RL; ++e) {
+          sum += part[j * (C / RL) + t * (RC / RL) + e];
+        }
+      }
+    }
+  }
+  return sum;
 }
 
 template <class Tr, int BM, int BN>
 __device__ __forceinline__ void long_row(
-    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ block_cols,
-    const uint4* __restrict__ data, const typename Tr::Vec* __restrict__ x,
-    typename Tr::Vec* __restrict__ y, int r, int rank, int split,
-    unsigned char* smem) {
+    const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
+    const typename Tr::Vec* __restrict__ x, typename Tr::Vec* __restrict__ y,
+    int4 task, int rank, int split) {
   using Vec = typename Tr::Vec;
-  constexpr int V = Tr::V;
-  constexpr int W = kThreads;
-  constexpr int RC = BN / V;                  // chunks per block row
-  constexpr int C = BM * RC;                  // chunks per block
-  constexpr int SC = OTT_LONG_REGS ? W * kLongLoads : kStageChunks;
-  constexpr int CPS = SC / W;                 // chunks per thread per stage
-  constexpr int KPB = C > W ? C / W : 1;      // accumulators per thread
-  constexpr int G = C > SC ? C / SC : 1;      // stages per block
-  constexpr int NX = G * CPS / KPB;           // x chunks per G stages
-  constexpr int RL = RC < 32 ? RC : 32;       // lanes of a row in one warp
-  static_assert(NX >= 1 && (C > W ? C : W) / RL <= kPartials, "shape");
-
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  uint4* ring = reinterpret_cast<uint4*>(smem + kRingOffset);
-  Vec* part = reinterpret_cast<Vec*>(
-      smem + kRingOffset + (OTT_LONG_REGS ? 0 : kStages * kStageBytes));
-  Vec* rowsum = part + kPartials;
+  __shared__ Vec part[kPartials];
+  __shared__ Vec rowsum[BM];
   const int t = threadIdx.x;
-
-  const int begin = __ldg(row_ptr + r);
-  const long long len = __ldg(row_ptr + r + 1) - begin;
-  const int b0 = begin + static_cast<int>(len * rank / split);
-  const int b1 = begin + static_cast<int>(len * (rank + 1) / split);
-  const int chunks = (b1 - b0) * C;
-  const int stages = (chunks + SC - 1) / SC;
-  const uint4* src = data + static_cast<size_t>(b0) * C;
-  auto issue = [&](int s) {
-    const int n = min(SC, chunks - s * SC);
-    bulk_load(ring + (s % kStages) * SC, src + static_cast<size_t>(s) * SC,
-              static_cast<uint32_t>(n) * 16, bar + s % kStages);
-  };
-#if !OTT_LONG_REGS
-  if (t == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (t == 0) {
-    for (int s = 0; s < min(kStages, stages); ++s) issue(s);
-  }
-#endif
-
-  // Thread chunk g = s SC + t + W i of the segment lies in block g / C at
-  // position t + W c (mod C), c = piece CPS + i: accumulator c % KPB, x chunk
-  // c / KPB, column chunk t % RC.  The x chunks of the G stages from s0 are
-  // loaded one group ahead of their use (a chunk past the segment's end
-  // loads the x of its last block, unused).
-  auto load_xs = [&](int s0, Vec (&xs)[NX][V]) {
-#pragma unroll
-    for (int piece = 0; piece < G; ++piece) {
-#pragma unroll
-      for (int i = 0; i < CPS; ++i) {
-        const int c = piece * CPS + i;
-        if (c % KPB == 0) {
-          const int g = min((s0 + piece) * SC + t + W * i, chunks - 1);
-          const int col = __ldg(block_cols + b0 + g / C);
-          Tr::load_x(x + static_cast<size_t>(col) * BN + (t % RC) * V,
-                     xs[c / KPB]);
-        }
-      }
-    }
-  };
-  Vec acc[KPB];
-#pragma unroll
-  for (int k = 0; k < KPB; ++k) acc[k] = Vec(0);
-  Vec xv[NX][V], xn[NX][V];
-#if OTT_LONG_REGS
-  auto load_round = [&](int s, uint4 (&a)[CPS]) {
-#pragma unroll
-    for (int i = 0; i < CPS; ++i) {
-      a[i] = ld_stream(src + min(s * SC + t + W * i, chunks - 1));
-    }
-  };
-  uint4 a[CPS], an[CPS];
-  if (stages > 0) {
-    load_round(0, a);
-    load_xs(0, xv);
-  }
-  for (int s0 = 0; s0 < stages; s0 += G) {
-    if (s0 + G < stages) load_xs(s0 + G, xn);
-#pragma unroll
-    for (int piece = 0; piece < G; ++piece) {
-      const int s = s0 + piece;
-      if (s + 1 < stages) load_round(s + 1, an);
-#pragma unroll
-      for (int i = 0; i < CPS; ++i) {
-        const int c = piece * CPS + i;
-        if (s * SC + t + W * i >= chunks) a[i] = make_uint4(0, 0, 0, 0);
-        acc[c % KPB] = Tr::dot(a[i], xv[c / KPB], acc[c % KPB]);
-      }
-#pragma unroll
-      for (int i = 0; i < CPS; ++i) a[i] = an[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NX; ++n) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) xv[n][e] = xn[n][e];
-    }
-  }
-#else
-  if (stages > 0) load_xs(0, xv);
-  for (int s0 = 0; s0 < stages; s0 += G) {
-    if (s0 + G < stages) load_xs(s0 + G, xn);
-#pragma unroll
-    for (int piece = 0; piece < G; ++piece) {
-      const int s = s0 + piece;
-      mbar_wait(bar + s % kStages, (s / kStages) & 1);
-      const uint4* stage = ring + (s % kStages) * SC;
-#pragma unroll
-      for (int i = 0; i < CPS; ++i) {
-        const int c = piece * CPS + i;
-        if (s * SC + t + W * i < chunks) {
-          acc[c % KPB] = Tr::dot(stage[t + W * i], xv[c / KPB], acc[c % KPB]);
-        }
-      }
-      __syncthreads();  // every thread is done with this slot
-      if (t == 0 && s + kStages < stages) {
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        issue(s + kStages);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NX; ++n) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) xv[n][e] = xn[n][e];
-    }
-  }
-#endif
-
-  // Row sums: butterfly over the RL lanes of a row, then partial q =
-  // (t + W k) / RL in shared memory; row i sums, in order, the partials
-  // j (C / RL) + i (RC / RL) + e for the W / C block offsets j and the
-  // RC / RL warps e of a row.
-#pragma unroll
-  for (int k = 0; k < KPB; ++k) {
-#pragma unroll
-    for (int off = RL / 2; off > 0; off >>= 1) {
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-    }
-    if (t % RL == 0) part[(t + W * k) / RL] = acc[k];
-  }
-  __syncthreads();
-  constexpr int JB = C < W ? W / C : 1;
-  Vec sum = Vec(0);
-  if (t < BM) {
-#pragma unroll
-    for (int j = 0; j < JB; ++j) {
-#pragma unroll
-      for (int e = 0; e < RC / RL; ++e) {
-        sum += part[j * (C / RL) + t * (RC / RL) + e];
-      }
-    }
-  }
-  Vec* yr = y + static_cast<size_t>(r) * BM;
+  const long long len = task.z - task.y;
+  const int b0 = task.y + static_cast<int>(len * rank / split);
+  const int b1 = task.y + static_cast<int>(len * (rank + 1) / split);
+  const Vec sum = segment_sum<Tr, BM, BN>(block_cols, data, x, b0, b1, part);
+  Vec* yr = y + static_cast<size_t>(task.x) * BM;
   if (split == 1) {
     if (t < BM) yr[t] = sum;
     return;
   }
+  // The segments' sums meet in rank 0, in rank order, through the
+  // cluster's distributed shared memory.
   if (t < BM) rowsum[t] = sum;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   if (rank == 0 && t < BM) {
     Vec total = sum;
-    for (int q = 1; q < split; ++q) total += cluster.map_shared_rank(rowsum, q)[t];
+    for (int q = 1; q < split; ++q) {
+      total += cluster.map_shared_rank(rowsum, q)[t];
+    }
     yr[t] = total;
   }
   cluster.sync();  // the other ranks' shared memory lives until rank 0 read it
@@ -464,34 +407,32 @@ __device__ __forceinline__ void long_row(
 
 template <class Tr, int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
-block_spmv_kernel(const int32_t* __restrict__ row_ptr,
+block_spmv_kernel(const int4* __restrict__ schedule,
                   const int32_t* __restrict__ block_cols,
-                  const int32_t* __restrict__ schedule,
                   const uint4* __restrict__ data,
                   const typename Tr::Vec* __restrict__ x,
                   typename Tr::Vec* __restrict__ y, int num_long, int split,
                   int num_short) {
-  extern __shared__ __align__(128) unsigned char smem[];
   const int long_blocks = num_long * split;
   const int b = blockIdx.x;
   if (b < long_blocks) {
-    long_row<Tr, BM, BN>(row_ptr, block_cols, data, x, y,
-                         __ldg(schedule + b / split), b % split, split, smem);
+    long_row<Tr, BM, BN>(block_cols, data, x, y,
+                         load_task(schedule, b / split), b % split, split);
     return;
   }
   constexpr int C = BM * (BN / Tr::V);
   if constexpr (C <= kWarpBlockChunks) {
     const int i = (b - long_blocks) * kWarps + threadIdx.x / 32;
     if (i < num_short) {
-      short_row<Tr, BM, BN>(row_ptr, block_cols, data, x, y,
-                            __ldg(schedule + num_long + i), threadIdx.x % 32);
+      short_row<Tr, BM, BN>(block_cols, data, x, y,
+                            load_task(schedule, num_long + i),
+                            threadIdx.x % 32);
     }
   }
 }
 
 template <class Tr>
-int launch(const int32_t* row_ptr, const int32_t* block_cols,
-           const int32_t* schedule, const void* data,
+int launch(const int4* schedule, const int32_t* block_cols, const void* data,
            const typename Tr::Vec* x, typename Tr::Vec* y, int num_block_rows,
            int num_long, int split, int bm, int bn, int device,
            cudaStream_t stream) {
@@ -500,7 +441,8 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(schedule) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   if (num_block_rows == 0) return 0;
@@ -514,7 +456,7 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(num_long * split + short_blocks);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = num_long > 0 ? long_smem_bytes<Tr>() : 0;
+  cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -522,7 +464,7 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = split > 1 ? 1 : 0;  // no cluster when no row is split
   const uint4* blocks = static_cast<const uint4*>(data);
 #define OTT_BLOCK_SPMV_CASE(BM_, BN_)                                        \
   if (bm == BM_ && bn == BN_) {                                              \
@@ -530,8 +472,8 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
       return static_cast<int>(cudaErrorInvalidValue);                        \
     }                                                                        \
     return static_cast<int>(cudaLaunchKernelEx(                              \
-        &cfg, block_spmv_kernel<Tr, BM_, BN_>, row_ptr, block_cols,          \
-        schedule, blocks, x, y, num_long, split, num_short));                \
+        &cfg, block_spmv_kernel<Tr, BM_, BN_>, schedule, block_cols, blocks, \
+        x, y, num_long, split, num_short));                                  \
   }
   OTT_BLOCK_SPMV_CASE(8, 8)
   OTT_BLOCK_SPMV_CASE(8, 32)
@@ -549,39 +491,36 @@ int launch(const int32_t* row_ptr, const int32_t* block_cols,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the launch's CUDA
-// error: 0 when the kernel was launched.  data and x must be 16-byte
-// aligned; the schedule is make_layout's (num_long long rows, then the
-// short ones).
+// error: 0 when the kernel was launched.  data, x and the schedule must be
+// 16-byte aligned; the schedule is make_layout's table of (block-row, first
+// block, end block, 0), num_long long rows first, then the short ones.
 extern "C" {
 
-int block_spmv_exact_f32(const int32_t* row_ptr, const int32_t* block_cols,
-                         const int32_t* schedule, const float* data,
-                         const float* x, float* y, int num_block_rows,
-                         int num_long, int split, int bm, int bn, int device,
-                         void* stream) {
-  return launch<ExactF32>(row_ptr, block_cols, schedule, data, x, y,
-                          num_block_rows, num_long, split, bm, bn, device,
-                          static_cast<cudaStream_t>(stream));
+int block_spmv_exact_f32(const void* schedule, const int32_t* block_cols,
+                         const float* data, const float* x, float* y,
+                         int num_block_rows, int num_long, int split, int bm,
+                         int bn, int device, void* stream) {
+  return launch<ExactF32>(static_cast<const int4*>(schedule), block_cols,
+                          data, x, y, num_block_rows, num_long, split, bm, bn,
+                          device, static_cast<cudaStream_t>(stream));
 }
 
-int block_spmv_exact_f64(const int32_t* row_ptr, const int32_t* block_cols,
-                         const int32_t* schedule, const double* data,
-                         const double* x, double* y, int num_block_rows,
-                         int num_long, int split, int bm, int bn, int device,
-                         void* stream) {
-  return launch<ExactF64>(row_ptr, block_cols, schedule, data, x, y,
-                          num_block_rows, num_long, split, bm, bn, device,
-                          static_cast<cudaStream_t>(stream));
+int block_spmv_exact_f64(const void* schedule, const int32_t* block_cols,
+                         const double* data, const double* x, double* y,
+                         int num_block_rows, int num_long, int split, int bm,
+                         int bn, int device, void* stream) {
+  return launch<ExactF64>(static_cast<const int4*>(schedule), block_cols,
+                          data, x, y, num_block_rows, num_long, split, bm, bn,
+                          device, static_cast<cudaStream_t>(stream));
 }
 
-int block_spmv_fast_bf16(const int32_t* row_ptr, const int32_t* block_cols,
-                         const int32_t* schedule, const void* data,
-                         const float* x, float* y, int num_block_rows,
-                         int num_long, int split, int bm, int bn, int device,
-                         void* stream) {
-  return launch<FastBf16>(row_ptr, block_cols, schedule, data, x, y,
-                          num_block_rows, num_long, split, bm, bn, device,
-                          static_cast<cudaStream_t>(stream));
+int block_spmv_fast_bf16(const void* schedule, const int32_t* block_cols,
+                         const void* data, const float* x, float* y,
+                         int num_block_rows, int num_long, int split, int bm,
+                         int bn, int device, void* stream) {
+  return launch<FastBf16>(static_cast<const int4*>(schedule), block_cols,
+                          data, x, y, num_block_rows, num_long, split, bm, bn,
+                          device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

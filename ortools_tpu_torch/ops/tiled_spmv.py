@@ -13,8 +13,10 @@ and adds a block-row CSR index over them (``BlockRowLayout``):
   an optional bf16 copy of ``data`` for the fast stream;
 - ``schedule``, the order in which the kernels take the block-rows: the
   long rows first, then the short ones, each longest first
-  (``row_schedule``).  A short row goes to one warp, a long one to
-  ``split`` thread blocks of one cluster.
+  (``row_schedule``), one (block-row, first block, end block, 0) entry
+  each, so that a kernel finds a row's blocks in one 16-byte load.  A
+  short row goes to one warp, a long one to ``split`` thread blocks of one
+  cluster.
 
 ``tiled_matvec`` launches ``block_spmv_exact`` (``csrc/block_spmv.cu``)
 on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``.
@@ -35,15 +37,16 @@ import torch
 # Block dims the CUDA kernels are instantiated for (csrc/block_spmv.cu).
 KERNEL_BLOCK_DIMS = (8, 32, 128)
 # A block-row goes to one warp when its blocks are at most WARP_BLOCK_BYTES
-# each (the kernel's limit: 16 loads of 16 bytes per lane) and at most
-# WARP_ROW_BYTES in all (two rounds of loads); otherwise it is long.
+# each (the kernel's limit: 8 loads of 16 bytes per lane per block) and at
+# most WARP_ROW_BYTES in all; otherwise it is long and goes to thread blocks
+# of 256 threads.
 WARP_BLOCK_BYTES = 4096
-WARP_ROW_BYTES = 16384
-# A long row is split over up to MAX_SPLIT thread blocks (one cluster) until
-# the long rows fill about LONG_BLOCKS_TARGET thread blocks (four on each SM
-# of a 132-SM H100); a segment keeps at least two blocks of the row.
+WARP_ROW_BYTES = 65536
+# A long row is split over up to MAX_SPLIT thread blocks (one cluster) while
+# the long rows fill fewer than LONG_BLOCKS_TARGET thread blocks (about one
+# for each SM of an H100); a segment keeps at least two blocks of the row.
 MAX_SPLIT = 8
-LONG_BLOCKS_TARGET = 512
+LONG_BLOCKS_TARGET = 128
 
 
 class BlockRowLayout(NamedTuple):
@@ -55,7 +58,7 @@ class BlockRowLayout(NamedTuple):
     block_cols: torch.Tensor  # int32 [nb]
     data: torch.Tensor  # [nb, bm, bn]
     data_hi: Optional[torch.Tensor]  # bf16 [nb, bm, bn]: the fast stream
-    schedule: torch.Tensor  # int32 [num_block_rows]: long rows, then short
+    schedule: torch.Tensor  # int32 [num_block_rows, 4]: long, then short
     num_long: int  # the first num_long rows of the schedule are long
     split: int  # thread blocks (one cluster) per long row
     num_block_cols: int  # x has num_block_cols * bn entries
@@ -97,6 +100,17 @@ def row_schedule(counts: np.ndarray, block_bytes: int):
     return order.astype(np.int32), num_long, split
 
 
+def schedule_table(order: np.ndarray, row_ptr: np.ndarray) -> np.ndarray:
+    """The kernels' schedule: (block-row, first block, end block, 0) for
+    each block-row in ``order``; int32 [len(order), 4]."""
+    order = np.asarray(order, dtype=np.int64)
+    table = np.zeros((order.size, 4), dtype=np.int32)
+    table[:, 0] = order
+    table[:, 1] = row_ptr[order]
+    table[:, 2] = row_ptr[order + 1]
+    return table
+
+
 def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
                 block_cols: torch.Tensor, padded_shape, hi: bool = False,
                 ) -> BlockRowLayout:
@@ -111,7 +125,7 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
     counts = np.bincount(rows, minlength=num_block_rows)
     row_ptr = np.zeros(num_block_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=row_ptr[1:])
-    schedule, num_long, split = row_schedule(
+    order, num_long, split = row_schedule(
         counts, bm * bn * data.element_size())
     return BlockRowLayout(
         row_ptr=torch.as_tensor(row_ptr, device=data.device),
@@ -119,7 +133,8 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
         block_cols=block_cols,
         data=data,
         data_hi=data.to(torch.bfloat16) if hi else None,
-        schedule=torch.as_tensor(schedule, device=data.device),
+        schedule=torch.as_tensor(schedule_table(order, row_ptr),
+                                 device=data.device),
         num_long=num_long,
         split=split,
         num_block_cols=padded_shape[1] // bn,
@@ -186,7 +201,7 @@ def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
     if any(v.dtype != torch.int32
            for v in (t.row_ptr, t.block_cols, t.schedule)):
         raise TypeError("row_ptr, block_cols and schedule must be int32")
-    for name, v in (("x", x), ("data", data)):
+    for name, v in (("x", x), ("data", data), ("schedule", t.schedule)):
         if v.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernels "
                              f"read it in 16-byte chunks)")
@@ -196,9 +211,8 @@ def _launch(fn, t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
             y: torch.Tensor) -> None:
     bm, bn = t.block_shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ctypes.c_void_p(t.row_ptr.data_ptr()),
+    err = fn(ctypes.c_void_p(t.schedule.data_ptr()),
              ctypes.c_void_p(t.block_cols.data_ptr()),
-             ctypes.c_void_p(t.schedule.data_ptr()),
              ctypes.c_void_p(data.data_ptr()),
              ctypes.c_void_p(x.data_ptr()),
              ctypes.c_void_p(y.data_ptr()),

@@ -12,7 +12,10 @@ For A (8x128) and A^T (128x8) of the bench LP (block_random_lp 16384^2,
 
 - the schedule ``make_layout`` chose;
 - every row short (one warp each), where the blocks allow it;
-- every row long, split 1, 2, 4 and 8 ways.
+- every row long, split 1, 2, 4 and 8 ways (A^T; split 1 only for A);
+
+and each of that under builds of the kernels with other loads in flight per
+round (``BUILDS``), compiled in parallel.
 
 Beside them: the launch floor (the same kernel on a one-block matrix) and
 ``torch.sum`` over the same blocks, a read of the same bytes by a library
@@ -42,37 +45,46 @@ from ortools_tpu_torch.pdlp import solver as pdlp_solver  # noqa: E402
 
 
 def variants(lay):
-    """(label, layout) for each schedule tried."""
-    counts = np.diff(lay.row_ptr.cpu().numpy())
-    by_length = torch.as_tensor(
-        np.argsort(-counts, kind="stable").astype(np.int32),
-        device=lay.row_ptr.device)
+    """(label, layout) for each schedule tried: make_layout's, every row
+    short (where the blocks allow), every row long split 1, 2, 4, 8 ways
+    (only split 1 for A, whose 2048 short rows make splits pointless)."""
+    row_ptr = lay.row_ptr.cpu().numpy()
+    order = np.argsort(-np.diff(row_ptr), kind="stable")
+    by_length = torch.as_tensor(tiled_spmv.schedule_table(order, row_ptr),
+                                device=lay.row_ptr.device)
     bm, bn = lay.block_shape
     out = [(f"make_layout (long {lay.num_long}, split {lay.split})", lay)]
     if bm * bn * 4 <= tiled_spmv.WARP_BLOCK_BYTES:
         out.append(("all short", lay._replace(schedule=by_length, num_long=0,
                                               split=1)))
-    for split in (1, 2, 4, 8):
+    splits = (1, 2, 4, 8) if lay.num_block_rows <= 512 else (1,)
+    for split in splits:
         out.append((f"all long, split {split}",
                     lay._replace(schedule=by_length,
                                  num_long=lay.num_block_rows, split=split)))
     return out
 
 
-# Builds of csrc/block_spmv.cu with its tuning macros set otherwise.
+# Builds of csrc/block_spmv.cu with another count of 16-byte loads per lane
+# and round in a warp's stream (OTT_SHORT_LOADS, default 8).
 BUILDS = {
     "default": (),
-    "long in registers, 8 loads": ("-DOTT_LONG_REGS=1", "-DOTT_LONG_LOADS=8"),
-    "long in registers, 4 loads": ("-DOTT_LONG_REGS=1", "-DOTT_LONG_LOADS=4"),
-    "long in registers, 16 loads": ("-DOTT_LONG_REGS=1",
-                                    "-DOTT_LONG_LOADS=16"),
-    "short 8 loads": ("-DOTT_SHORT_LOADS=8",),
-    "short 32 loads": ("-DOTT_SHORT_LOADS=32",),
-    "128 threads, long in registers": ("-DOTT_THREADS=128",
-                                       "-DOTT_LONG_REGS=1"),
-    "512 threads, long in registers": ("-DOTT_THREADS=512",
-                                       "-DOTT_LONG_REGS=1"),
+    "warp loads 16": ("-DOTT_SHORT_LOADS=16",),
 }
+
+
+def registers(report: str) -> dict:
+    """Registers of the bench instantiations, from a -Xptxas -v report."""
+    out, current = {}, None
+    for line in report.splitlines():
+        for tag in ("ExactF32ELi8ELi128", "ExactF32ELi128ELi8",
+                    "FastBf16ELi8ELi128", "FastBf16ELi128ELi8"):
+            if "Compiling entry" in line and tag in line:
+                current = tag
+        if current and "registers" in line:
+            out[current] = int(line.split("Used")[1].split()[0])
+            current = None
+    return out
 
 
 def build_all() -> dict:
@@ -93,11 +105,13 @@ def build_all() -> dict:
         chip_smoke.require(proc.returncode == 0, f"{name}: {report[-2000:]}")
         spills = [line for line in report.splitlines()
                   if "spill" in line and not line.strip().startswith("0 bytes")]
-        print(f"built {name}: {len(spills)} spilling functions")
+        regs = registers(report)
+        print(f"built {name}: {len(spills)} spilling functions; registers "
+              + ", ".join(f"{k} {v}" for k, v in regs.items()))
         lib = ctypes.CDLL(str(so))
         for fn_name in _build._FUNCTIONS:
             fn = getattr(lib, fn_name)
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
         libs[name] = lib

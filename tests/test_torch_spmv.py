@@ -140,10 +140,17 @@ def _row_lengths(lay):
 def test_layout_schedule_covers_every_row_once(m, n, density, block_shape):
     a, jm, _, tm = _make(m, n, density, block_shape, seed=m + n)
     lay = tm.tiled
-    sched = lay.schedule.numpy()
+    table = lay.schedule.numpy()
     assert lay.schedule.dtype == torch.int32
+    assert table.shape == (lay.num_block_rows, 4)
+    sched = table[:, 0]
     np.testing.assert_array_equal(np.sort(sched),
                                   np.arange(lay.num_block_rows))
+    # each entry holds its row's blocks: row_ptr[r] .. row_ptr[r + 1]
+    row_ptr = lay.row_ptr.numpy()
+    np.testing.assert_array_equal(table[:, 1], row_ptr[sched])
+    np.testing.assert_array_equal(table[:, 2], row_ptr[sched + 1])
+    assert not table[:, 3].any()
     # row_ptr counts the blocks the JAX package stores in each block-row
     bm = block_shape[0]
     jrows = np.asarray(jm.block_rows)[:jm.num_real_blocks]
@@ -153,7 +160,8 @@ def test_layout_schedule_covers_every_row_once(m, n, density, block_shape):
     # long rows first, then short ones, each longest first
     lengths = _row_lengths(lay)[sched]
     block_bytes = bm * block_shape[1] * 4
-    long_rows = lengths * block_bytes > T.WARP_ROW_BYTES
+    long_rows = ((lengths * block_bytes > T.WARP_ROW_BYTES)
+                 | (block_bytes > T.WARP_BLOCK_BYTES))
     assert long_rows[:lay.num_long].all()
     assert not long_rows[lay.num_long:].any()
     assert np.all(np.diff(lengths[:lay.num_long]) <= 0)
@@ -161,14 +169,16 @@ def test_layout_schedule_covers_every_row_once(m, n, density, block_shape):
 
 
 @pytest.mark.parametrize("counts,block_bytes,schedule,num_long,split", [
-    # 4 KB blocks: a row of 5+ blocks (over 16 KB) is long; ties keep order
-    ([0, 1, 96, 3, 5, 0, 4], 4096, [2, 4, 6, 3, 1, 0, 5], 2, 8),
+    # 4 KB blocks: a row of 17+ blocks (over 64 KB) is long; ties keep order
+    ([0, 1, 96, 3, 20, 0, 4], 4096, [2, 4, 6, 3, 1, 0, 5], 2, 8),
     # blocks over 4 KB are too large for a warp: every row is long
     ([0, 1, 96, 3], 8192, [2, 3, 1, 0], 4, 8),
     # no long row: nothing to split
-    ([2, 0, 2, 1], 4096, [0, 2, 3, 1], 0, 1),
-    # one long row of 6 blocks: segments keep two blocks or more
-    ([6, 1], 4096, [0, 1], 1, 2),
+    ([2, 0, 2, 16], 4096, [3, 0, 2, 1], 0, 1),
+    # the longest row has 6 blocks: segments keep two blocks or more
+    ([6, 1], 8192, [0, 1], 2, 2),
+    # 128 long rows fill the card without a split
+    ([40] * 128, 4096, list(range(128)), 128, 1),
 ])
 def test_row_schedule_assigns_rows_by_length(counts, block_bytes, schedule,
                                              num_long, split):
@@ -184,13 +194,13 @@ def test_row_schedule_of_the_bench_lp():
                                             replace=False)
     counts_a = np.bincount(cells // 128, minlength=2048)
     counts_at = np.bincount(cells % 128, minlength=128)
+    # A^T: 128 rows of 16-49 blocks of 4 KB, each a thread block's
     sched, num_long, split = T.row_schedule(counts_at, 128 * 8 * 4)
-    assert (num_long, split) == (128, 4)  # 512 thread blocks
+    assert counts_at.min() > 16 and (num_long, split) == (128, 1)
+    # A: 2048 rows of 0-10 blocks, each a warp's, longest first
     sched, num_long, split = T.row_schedule(counts_a, 8 * 128 * 4)
-    assert num_long == int((counts_a >= 5).sum()) and 0 < num_long < 200
-    assert counts_a[sched[num_long:]].max() == 4
-    # the bf16 copy's blocks are half as large: the f32 schedule fits them
-    assert counts_a[sched[num_long:]].max() * 8 * 128 * 2 <= T.WARP_ROW_BYTES
+    assert (num_long, split) == (0, 1)
+    assert counts_a[sched[0]] == counts_a.max() and counts_a.max() <= 16
 
 
 def test_make_layout_is_deterministic():
