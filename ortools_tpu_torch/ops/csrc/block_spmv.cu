@@ -25,32 +25,39 @@
 // cores and further below that of the tensor cores.  So no tensor cores:
 // the design is about bytes in flight.
 //
-// The design, against the four faults of the first (scalar) version:
+// The design, against the four faults of the first (scalar) version.
+// Numbers: NVIDIA H100 80GB HBM3 at 700 W, scripts/torch_spmv_probe.py.
 // 1. Scalar loads.  Every load is 16 bytes: a float4 of f32, a double2 of
-//    f64, or eight bf16 in a uint4.  Lane l of a team reads chunk l,
-//    l + team, ... of the row's contiguous run of blocks, so neighbouring
-//    lanes read neighbouring 16-byte chunks.  Since bn is a power of two
-//    that divides (or is divided by) the team, a thread's column chunk
-//    inside every block is fixed (t % chunks-per-block-row).
+//    f64, or eight bf16 in a uint4.  A team (a warp, or a thread block for
+//    blocks over 4 KB) streams a contiguous run of blocks: thread t reads
+//    chunks t, t + team, ..., so neighbouring lanes read neighbouring
+//    16-byte chunks.  Since bn and the team are powers of two, a thread's
+//    column chunk inside every block is fixed (t % chunks-per-block-row).
+//    The loads go to registers in rounds of 8 (16 for 4 KB f32 blocks) per
+//    thread, each round issued before the previous one is used (register
+//    double buffering), with no branch around a load.  A ring of bulk
+//    asynchronous copies into shared memory (cp.async.bulk on an mbarrier,
+//    4 stages of 8 KB) was measured and dropped: at bench A^T it took
+//    13.7 us (exact) and 11.8 us (fast) where registers took 9.8 and 7.5.
 // 2. x re-read per row.  A thread loads the x chunk its columns need once
 //    per block (for the fast kernel: rounded to bf16 once) and reuses it
-//    for every row of the block it covers.
+//    for every row of the block it covers: 8 rows of a 128x8 f32 block,
+//    4 of a bf16 one.
 // 3. Short rows.  make_layout (tiled_spmv.py) sorts the block-rows into a
-//    schedule: long rows first, then short ones, each longest first.  A
-//    short row (blocks of at most 4 KB, at most 16 KB in all) goes to one
-//    warp, eight per thread block, so bench A (2048 rows of ~2 blocks) is
-//    256 thread blocks: one wave.  Each lane issues up to 16 loads across
-//    the row's blocks before it uses any of them.  The bm row sums leave
-//    the lanes by a fixed xor butterfly.
-// 4. Tall rows.  A long row is split into `split` contiguous segments
-//    (split <= 8, chosen in make_layout so that about 512 thread blocks
-//    are busy: bench A^T's 128 rows give 512), one thread block of 256
-//    threads each, launched as one thread-block cluster per row.  Each
-//    streams its segment through a ring of 4 stages of 8 KB in shared
-//    memory, filled by 1-D bulk asynchronous copies (cp.async.bulk)
-//    completing on an mbarrier, up to 32 KB in flight per thread block.
-//    The segments' row sums meet in rank 0's thread block through the
-//    cluster's distributed shared memory, in rank order.
+//    schedule of (row, first block, end block) entries: long rows first,
+//    then short ones, each longest first.  A short row (blocks of at most
+//    4 KB, at most 64 KB in all) goes to one warp, eight per thread block,
+//    so bench A (2048 rows of 0-10 blocks) is 256 thread blocks: one wave.
+//    The bm row sums leave the lanes by a fixed xor butterfly.
+// 4. Tall rows.  A long row goes to one thread block of 256 threads: its
+//    blocks are cut into 8 contiguous runs, one per warp, streamed as in 3,
+//    and the warps' sums meet in shared memory in warp order (blocks over
+//    4 KB: the thread block streams the row as one team).  Bench A^T is
+//    128 such thread blocks of 8 warps.  Where the long rows are fewer than
+//    128, a row is also split over up to 8 thread blocks of one cluster,
+//    whose sums meet in rank 0 through distributed shared memory, in rank
+//    order.  At bench A^T splitting was measured slower (2 ways: 10.3 us
+//    exact, 7.6 us fast; 4 ways: 14.0 and 12.4) than none (9.7 and 6.8).
 //
 // Deterministic output: every y entry is written by one thread, each
 // thread sums its chunks in stream order, and the sums meet in a fixed
@@ -67,16 +74,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-#ifndef OTT_SHORT_LOADS
-#define OTT_SHORT_LOADS 8
-#endif
-#ifndef OTT_LONG_LOADS
-#define OTT_LONG_LOADS 8
-#endif
 constexpr int kThreads = 256;             // threads of a thread block
 constexpr int kWarps = kThreads / 32;     // short rows per thread block
-constexpr int kShortLoads = OTT_SHORT_LOADS;  // per lane per round, short
-constexpr int kLongLoads = OTT_LONG_LOADS;    // per thread per round, long
+constexpr int kLoads = 8;                 // 16-byte loads per thread per round
 constexpr int kWarpBlockChunks = 256;     // largest block a warp takes (4 KB)
 constexpr int kMaxSplit = 8;              // portable cluster size
 constexpr int kPartials = kWarps * 128;  // row partials of a thread block
@@ -157,11 +157,6 @@ __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
-}
-
-// One schedule entry: block-row, its first block, its end block, unused.
-__device__ __forceinline__ int4 load_task(const int4* schedule, int i) {
-  return __ldg(schedule + i);
 }
 
 // A team of W threads streams the contiguous chunks [0, total) of a run of
@@ -253,7 +248,10 @@ struct Stream {
 // lanes on other blocks (P < 32), then over the RC lanes of one row.
 template <class Tr, int BM, int BN>
 struct WarpRows {
-  using S = Stream<Tr, BM, BN, 32, kShortLoads>;
+  // 4 KB f32 blocks take 16 loads a round (two blocks, two x chunks per
+  // lane); other blocks 8, which keeps every instantiation free of spills.
+  static constexpr int L = Tr::V == 4 && BM * BN >= 512 ? 2 * kLoads : kLoads;
+  using S = Stream<Tr, BM, BN, 32, L>;
   using Vec = typename Tr::Vec;
   static constexpr int RC = S::RC, C = S::C, KPB = S::KPB;
   static constexpr int P = C < 32 ? C : 32;  // lanes on distinct chunks
@@ -343,7 +341,7 @@ __device__ __forceinline__ typename Tr::Vec segment_sum(
       for (int j = 0; j < kWarps; ++j) sum += part[j * BM + t];
     }
   } else {
-    using S = Stream<Tr, BM, BN, W, kLongLoads>;
+    using S = Stream<Tr, BM, BN, W, kLoads>;
     constexpr int KPB = S::KPB;
     constexpr int RL = RC < 32 ? RC : 32;  // lanes of a row in one warp
     static_assert((C > W ? C : W) / RL <= kPartials, "shape");
@@ -417,7 +415,7 @@ block_spmv_kernel(const int4* __restrict__ schedule,
   const int b = blockIdx.x;
   if (b < long_blocks) {
     long_row<Tr, BM, BN>(block_cols, data, x, y,
-                         load_task(schedule, b / split), b % split, split);
+                         __ldg(schedule + b / split), b % split, split);
     return;
   }
   constexpr int C = BM * (BN / Tr::V);
@@ -425,7 +423,7 @@ block_spmv_kernel(const int4* __restrict__ schedule,
     const int i = (b - long_blocks) * kWarps + threadIdx.x / 32;
     if (i < num_short) {
       short_row<Tr, BM, BN>(block_cols, data, x, y,
-                            load_task(schedule, num_long + i),
+                            __ldg(schedule + num_long + i),
                             threadIdx.x % 32);
     }
   }

@@ -192,15 +192,14 @@ def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
     if x.dim() != 1 or x.shape[0] != t.num_block_cols * bn:
         raise ValueError(f"x must be the padded length-{t.num_block_cols * bn}"
                          f" vector, got shape {tuple(x.shape)}")
-    for name, v in (("x", x), ("data", data), ("row_ptr", t.row_ptr),
-                    ("block_cols", t.block_cols), ("schedule", t.schedule)):
+    for name, v in (("x", x), ("data", data), ("block_cols", t.block_cols),
+                    ("schedule", t.schedule)):
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if any(v.dtype != torch.int32
-           for v in (t.row_ptr, t.block_cols, t.schedule)):
-        raise TypeError("row_ptr, block_cols and schedule must be int32")
+    if t.block_cols.dtype != torch.int32 or t.schedule.dtype != torch.int32:
+        raise TypeError("block_cols and schedule must be int32")
     for name, v in (("x", x), ("data", data), ("schedule", t.schedule)):
         if v.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernels "

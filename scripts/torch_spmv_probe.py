@@ -12,19 +12,15 @@ For A (8x128) and A^T (128x8) of the bench LP (block_random_lp 16384^2,
 
 - the schedule ``make_layout`` chose;
 - every row short (one warp each), where the blocks allow it;
-- every row long, split 1, 2, 4 and 8 ways (A^T; split 1 only for A);
+- every row long, split 1, 2, 4 and 8 ways (A^T; split 1 only for A).
 
-and each of that under builds of the kernels with other loads in flight per
-round (``BUILDS``), compiled in parallel.
-
-Beside them: the launch floor (the same kernel on a one-block matrix) and
-``torch.sum`` over the same blocks, a read of the same bytes by a library
-kernel.  Each result is checked against the plain version.
+Beside them: the launch floor (a one-element torch kernel, and each kernel
+on a one-block matrix) and ``torch.sum`` over the same blocks, a read of
+the same bytes by a library kernel.  Each result is checked against the plain version.
 """
 
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -65,59 +61,6 @@ def variants(lay):
     return out
 
 
-# Builds of csrc/block_spmv.cu with another count of 16-byte loads per lane
-# and round in a warp's stream (OTT_SHORT_LOADS, default 8).
-BUILDS = {
-    "default": (),
-    "warp loads 16": ("-DOTT_SHORT_LOADS=16",),
-}
-
-
-def registers(report: str) -> dict:
-    """Registers of the bench instantiations, from a -Xptxas -v report."""
-    out, current = {}, None
-    for line in report.splitlines():
-        for tag in ("ExactF32ELi8ELi128", "ExactF32ELi128ELi8",
-                    "FastBf16ELi8ELi128", "FastBf16ELi128ELi8"):
-            if "Compiling entry" in line and tag in line:
-                current = tag
-        if current and "registers" in line:
-            out[current] = int(line.split("Used")[1].split()[0])
-            current = None
-    return out
-
-
-def build_all() -> dict:
-    """Compile every build at once (one nvcc each); returns name -> CDLL."""
-    out_dir = ROOT / "build" / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, defs) in enumerate(BUILDS.items()):
-        so = out_dir / f"lib{i}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *defs, "-o", str(so),
-               str(_build.SOURCE)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        report = proc.communicate()[0]
-        chip_smoke.require(proc.returncode == 0, f"{name}: {report[-2000:]}")
-        spills = [line for line in report.splitlines()
-                  if "spill" in line and not line.strip().startswith("0 bytes")]
-        regs = registers(report)
-        print(f"built {name}: {len(spills)} spilling functions; registers "
-              + ", ".join(f"{k} {v}" for k, v in regs.items()))
-        lib = ctypes.CDLL(str(so))
-        for fn_name in _build._FUNCTIONS:
-            fn = getattr(lib, fn_name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_spmv_probe: no CUDA device is available", file=sys.stderr)
@@ -134,19 +77,15 @@ def main() -> int:
         sp.csr_matrix(np.ones((8, 128))), dtype=torch.float32,
         device="cuda").with_tiled(hi=True)
     xt = torch.ones(tiny.padded_shape[1], device="cuda")
-    libs = build_all()
+    _build.library()
     one = torch.zeros(1, device="cuda")
     ms = chip_smoke.time_launches(lambda t: t.zero_(), [(one,)], 400)
     print(f"launch floor of a one-element torch kernel: {ms * 1e3:.2f} us")
-    for build, lib in libs.items():
-        print(f"-- build: {build}")
-        _build._lib = lib
-        for name, spec in chip_smoke.KERNELS.items():
-            ms = chip_smoke.time_launches(spec["wrapper"],
-                                          [(tiny.tiled, xt)], 400)
-            print(f"launch floor {name}: {ms * 1e3:.2f} us (one 8x128 "
-                  f"block)")
-        time_variants(prob)
+    for name, spec in chip_smoke.KERNELS.items():
+        ms = chip_smoke.time_launches(spec["wrapper"], [(tiny.tiled, xt)],
+                                      400)
+        print(f"launch floor {name}: {ms * 1e3:.2f} us (one 8x128 block)")
+    time_variants(prob)
     print(smi)
     return 0
 
