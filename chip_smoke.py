@@ -17,7 +17,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    others empty: both of the kernels' row variants in one launch) and an
    empty matrix; exact in f32 and f64, fast (bf16) in f32; each run twice,
    bit-identical.
-4. ``pdlp.solve`` on a moderate LP to OPTIMAL, held against HiGHS.
+4. ``pdlp.solve`` on moderate LPs (four seeds) to OPTIMAL, each held
+   against HiGHS.
 5. The main path at full width: ``pdlp.solve`` on the bench LP
    (block_random_lp 16384 x 16384, 4096 blocks of 8x128, seed 0, f32,
    default parameters) with an iteration limit, with the launch counters
@@ -26,7 +27,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    memory, and each kernel's time at the bench shape beside its bound, its
    plain version and a PyTorch sparse CSR product (L2-cold), with its
    L2-warm time and, for the exact kernel, a block-sparse (BSR) product
-   beside them.
+   beside them; the launch floor (each kernel on a one-block matrix); and
+   the kernels' times on the other block sizes of the same bytes (f64
+   bench A and A^T, f32 32x128 and 128x128 blocks) beside their bounds.
 6. The ``kernels`` line (JSON), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -65,7 +68,8 @@ L2_BYTES = 50 * 2**20
 BENCH = dict(m=16384, n=16384, num_blocks=4096, block_shape=(8, 128), seed=0)
 # The bench's solver parameters (bench.py:106): f32, blocks of 8x128.
 BENCH_PARAMS = dict(dtype=torch.float32, block_shape=(8, 128))
-MODERATE = dict(m=2048, n=2048, num_blocks=512, block_shape=(8, 128), seed=0)
+MODERATE = dict(m=2048, n=2048, num_blocks=512, block_shape=(8, 128))
+MODERATE_SEEDS = (0, 1, 2, 3)
 BENCH_ITERATION_LIMIT = 64 * 8
 TIMED_MAJORS = 6
 
@@ -173,8 +177,7 @@ def check_matrix(label: str, mat: BlockSparseMatrix, errs: dict) -> None:
     ef, sf = _rel_err(f, fref)
     efx, sfx = _rel_err(f, ref)
     print(f"{label:34s} long rows f32 {m32.tiled.num_long}/"
-          f"{m32.tiled.num_block_rows} split {m32.tiled.split}, f64 "
-          f"{m64.tiled.num_long} split {m64.tiled.split}:"
+          f"{m32.tiled.num_block_rows}, f64 {m64.tiled.num_long}:"
           f" exact f32 {e32:.3e} (<= {1e-5 * s32:.3e})"
           f"  exact f64 {e64:.3e} (<= {1e-12 * s64:.3e})"
           f"  fast {ef:.3e} (<= {1e-5 * sf:.3e})"
@@ -234,8 +237,8 @@ def kernels_against_plain(bench_prob) -> dict:
         check_matrix(f"2048^2 A^T ({bn}x{bm})", mat.block_transpose(), errs)
     skewed = skewed_matrix()
     lay = dataclasses.replace(skewed, data=skewed.data.float()).with_tiled()
-    require(lay.tiled.num_long == 1 and lay.tiled.split == 8,
-            "skewed: the f32 schedule should hold one long row, split 8 ways")
+    require(lay.tiled.num_long == 1,
+            "skewed: the f32 schedule should hold one long row")
     check_matrix("skewed 2048x16384 (8x128)", skewed, errs)
     check_matrix("skewed^T (128x8)", skewed.block_transpose(), errs)
     empty = BlockSparseMatrix.from_scipy(sp.csr_matrix((50, 60)),
@@ -259,24 +262,31 @@ def highs_objective(qp) -> float:
     return float(res.fun)
 
 
-def moderate_solve() -> None:
-    qp = block_random_lp(**MODERATE)
-    ref = highs_objective(qp)
-    reset_counters()
-    r = solve(qp, PdhgParams(record_iteration_stats=True))
-    launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
-    streams = [rec["stream"] for rec in r.iteration_stats]
-    rel = abs(r.primal_objective - ref) / (1 + abs(ref))
-    print(f"moderate LP {MODERATE}: {r.termination_reason.name} in "
-          f"{r.iterations} iterations, {r.solve_time_sec:.3f} s; objective "
-          f"{r.primal_objective!r} HiGHS {ref!r} (rel {rel:.2e});"
-          f" fast majors {streams.count('fast')}, exact majors "
-          f"{streams.count('exact')}; launches {launches}")
-    require(r.termination_reason == TerminationReason.OPTIMAL,
-            "moderate LP did not reach OPTIMAL")
-    require(rel <= 1e-4, "moderate LP objective disagrees with HiGHS")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched by the moderate solve: {launches}")
+def moderate_solve(seeds=MODERATE_SEEDS) -> None:
+    """Each seed's moderate LP to OPTIMAL with default parameters: the
+    iterations and time to tolerance, held against HiGHS.  Several seeds,
+    because one LP's count moves by majors under a change of summation
+    order."""
+    for seed in seeds:
+        qp = block_random_lp(**MODERATE, seed=seed)
+        ref = highs_objective(qp)
+        reset_counters()
+        r = solve(qp, PdhgParams(record_iteration_stats=True))
+        launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+        streams = [rec["stream"] for rec in r.iteration_stats]
+        rel = abs(r.primal_objective - ref) / (1 + abs(ref))
+        print(f"moderate LP {MODERATE} seed {seed}: "
+              f"{r.termination_reason.name} in {r.iterations} iterations, "
+              f"{r.solve_time_sec:.3f} s; objective {r.primal_objective!r} "
+              f"HiGHS {ref!r} (rel {rel:.2e}); fast majors "
+              f"{streams.count('fast')}, exact majors "
+              f"{streams.count('exact')}; launches {launches}", flush=True)
+        require(r.termination_reason == TerminationReason.OPTIMAL,
+                f"moderate LP seed {seed} did not reach OPTIMAL")
+        require(rel <= 1e-4,
+                f"moderate LP seed {seed} objective disagrees with HiGHS")
+        require(all(v > 0 for v in launches.values()),
+                f"a kernel was not launched by the moderate solve: {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +480,8 @@ def _bsr_product(mat: BlockSparseMatrix, x: torch.Tensor):
     return None, " / ".join(why)
 
 
-def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
+def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int,
+                    vec_bytes: int = 4) -> tuple:
     """Least time for one product: each input read once, y written once,
     over the card's memory rate, against 2 flops per stored entry over the
     f32 rate; returns (ms, "bytes" | "operations", bytes)."""
@@ -478,7 +489,7 @@ def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
     nb = mat.num_blocks
     bm, bn = mat.block_shape
     m, n = mat.padded_shape
-    nbytes = (nb * bm * bn * value_bytes + n * 4 + m * 4
+    nbytes = (nb * bm * bn * value_bytes + (n + m) * vec_bytes
               + (lay.num_block_rows + 1) * 4 + nb * 4)
     flops = 2 * nb * bm * bn
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
@@ -487,22 +498,87 @@ def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
     return t_ops * 1e3, "operations", nbytes
 
 
+def _cold_copies(lay) -> list:
+    """Copies of the layout, enough that even the smaller copy of the
+    blocks (bf16 where there is one) cycled over exceeds L2 twice."""
+    hi = lay.data_hi
+    nbytes = (lay.data if hi is None else hi).nbytes
+    return [lay._replace(data=lay.data.clone(),
+                         data_hi=None if hi is None else hi.clone())
+            for _ in range(1 + (2 * L2_BYTES) // nbytes)]
+
+
+def _long_rows(lay) -> str:
+    return f"{getattr(lay, 'num_long', '?')}/{lay.num_block_rows} long rows"
+
+
+def launch_floor() -> None:
+    """Each kernel on a one-block (8x128) matrix, and a one-element torch
+    kernel: the fixed cost of a launch, which the bytes bound leaves out."""
+    tiny = BlockSparseMatrix.from_scipy(
+        sp.csr_matrix(np.ones((8, 128))), dtype=torch.float32,
+        device="cuda").with_tiled(hi=True)
+    x = torch.ones(tiny.padded_shape[1], device="cuda")
+    one = torch.zeros(1, device="cuda")
+    ms = time_launches(lambda t: t.zero_(), [(one,)], 400)
+    print(f"launch floor: one-element torch kernel {ms:.4f} ms", end="")
+    for name, spec in KERNELS.items():
+        ms = time_launches(spec["wrapper"], [(tiny.tiled, x)], 400)
+        print(f", {name} on one 8x128 block {ms:.4f} ms", end="")
+    print()
+
+
+# The other block sizes auto_block_shape picks (ops/block_sparse.py), at
+# the bench matrix's bytes: 16384^2 with 1024 blocks of 32x128 and 256 of
+# 128x128 (16.8 MB of f32 each, seed 0), with their transposes.
+OTHER_SHAPES = (((32, 128), 1024), ((128, 128), 256))
+
+
+def shape_times(prob) -> None:
+    """The kernels' L2-cold time beside the bytes bound on the other block
+    sizes they take: f64 bench A and A^T (8 KB blocks, exact kernel), and
+    f32 OTHER_SHAPES (exact and fast)."""
+    cases = []
+    for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+        m64 = dataclasses.replace(mat, data=mat.data.double(),
+                                  tiled=None).with_tiled()
+        cases.append((f"f64 bench {orient}", m64, 8))
+    for block_shape, nb in OTHER_SHAPES:
+        qp = block_random_lp(16384, 16384, nb, block_shape, seed=0)
+        mat = BlockSparseMatrix.from_scipy(
+            qp.constraint_matrix, block_shape=block_shape,
+            dtype=torch.float32, device="cuda")
+        cases.append(("f32 A", mat.with_tiled(hi=True), 4))
+        cases.append(("f32 A^T", mat.block_transpose().with_tiled(hi=True),
+                      4))
+    for label, mat, vbytes in cases:
+        x = _x_for(mat, mat.data.dtype, 2)
+        lays = _cold_copies(mat.tiled)
+        for name, spec in KERNELS.items():
+            fast = name == "block_spmv_fast"
+            if fast and vbytes == 8:
+                continue
+            ms = time_launches(spec["wrapper"], [(t, x) for t in lays], 400)
+            bound_ms, _, nbytes = kernel_bound_ms(mat, 2 if fast else vbytes,
+                                                  vbytes)
+            print(f"{name:17s} {label:11s} {mat.block_shape} "
+                  f"({_long_rows(mat.tiled)}): kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes} bytes); {bound_ms / ms:.1%}"
+                  f" of bound", flush=True)
+        del lays
+
+
 def kernel_times(prob) -> dict:
     """Each kernel at the bench shape, A and A^T: its time, its plain
     version's time, the CSR library product's time, and its bound."""
     out = {}
     for orient, mat in (("A", prob.a), ("A^T", prob.at)):
         lay = mat.tiled
-        # enough copies that even the bf16 blocks cycled over exceed L2 twice
-        copies = 1 + (2 * L2_BYTES) // lay.data_hi.nbytes
-        lays32 = [lay._replace(data=lay.data.clone(),
-                               data_hi=lay.data_hi.clone())
-                  for _ in range(copies)]
+        lays32 = _cold_copies(lay)
         x = _x_for(mat, torch.float32, 2)
-        csrs = _csr_copies(mat, copies)
+        csrs = _csr_copies(mat, len(lays32))
         bsr, bsr_why = _bsr_product(mat, x)
-        print(f"{orient} layout: {lay.num_long} long rows split "
-              f"{lay.split} ways, {lay.num_block_rows - lay.num_long} short")
+        print(f"{orient} layout: {_long_rows(lay)}")
         for name, spec in KERNELS.items():
             fast = name == "block_spmv_fast"
             args = [(t, x) for t in lays32]
@@ -570,7 +646,7 @@ def main() -> int:
     del bench_prob
     torch.cuda.empty_cache()
 
-    phase("4. moderate LP to OPTIMAL against HiGHS")
+    phase("4. moderate LPs to OPTIMAL against HiGHS")
     moderate_solve()
 
     phase("5. full width: the bench LP through pdlp.solve")
@@ -580,6 +656,8 @@ def main() -> int:
     major_s, state = stream_rates(bench_prob)
     device_profile(bench_prob, state, major_s)
     times = kernel_times(bench_prob)
+    launch_floor()
+    shape_times(bench_prob)
 
     phase("6. kernels")
     kernels = []

@@ -80,8 +80,8 @@ def library() -> ctypes.CDLL:
         for name in _FUNCTIONS:
             fn = getattr(lib, name)
             # schedule, block_cols, data, x, y; num_block_rows, num_long,
-            # split, bm, bn, device; stream
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            # bm, bn, device; stream
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib

@@ -26,7 +26,8 @@
 // the design is about bytes in flight.
 //
 // The design, against the four faults of the first (scalar) version.
-// Numbers: NVIDIA H100 80GB HBM3 at 700 W, scripts/torch_spmv_probe.py.
+// Numbers: NVIDIA H100 80GB HBM3 at 700 W, L2-cold, chip_smoke.py's
+// timing method; PERF.md names the run of each.
 // 1. Scalar loads.  Every load is 16 bytes: a float4 of f32, a double2 of
 //    f64, or eight bf16 in a uint4.  A team (a warp, or a thread block for
 //    blocks over 4 KB) streams a contiguous run of blocks: thread t reads
@@ -47,30 +48,31 @@
 //    schedule of (row, first block, end block) entries: long rows first,
 //    then short ones, each longest first.  A short row (blocks of at most
 //    4 KB, at most 64 KB in all) goes to one warp, eight per thread block,
-//    so bench A (2048 rows of 0-10 blocks) is 256 thread blocks: one wave.
+//    so bench A (2048 rows of 0-10 blocks) is 256 thread blocks.  At 174
+//    registers (exact f32 8x128: 16 loads in flight per lane) one thread
+//    block fits an SM, so they run in two waves on 132 SMs.  One wave was
+//    slower both ways: 8 loads a round (2 thread blocks per SM) took
+//    11.3 us against 9.8, and __launch_bounds__(256, 2) spills 512 bytes
+//    at 128 registers and took 18.6 us against 10.1.
 //    The bm row sums leave the lanes by a fixed xor butterfly.
 // 4. Tall rows.  A long row goes to one thread block of 256 threads: its
 //    blocks are cut into 8 contiguous runs, one per warp, streamed as in 3,
 //    and the warps' sums meet in shared memory in warp order (blocks over
 //    4 KB: the thread block streams the row as one team).  Bench A^T is
-//    128 such thread blocks of 8 warps.  Where the long rows are fewer than
-//    128, a row is also split over up to 8 thread blocks of one cluster,
-//    whose sums meet in rank 0 through distributed shared memory, in rank
-//    order.  At bench A^T splitting was measured slower (2 ways: 10.3 us
-//    exact, 7.6 us fast; 4 ways: 14.0 and 12.4) than none (9.7 and 6.8).
+//    128 such thread blocks of 8 warps, on 128 of the 132 SMs.  Splitting
+//    a row over 2 or 4 thread blocks of a cluster, to fill more SMs, was
+//    measured slower at bench A^T (2 ways: 10.3 us exact, 7.6 us fast; 4
+//    ways: 14.0 and 12.4; unsplit 9.7 and 6.8) and is not done.
 //
 // Deterministic output: every y entry is written by one thread, each
 // thread sums its chunks in stream order, and the sums meet in a fixed
-// order (butterfly, then shared memory, then cluster rank), so repeated
+// order (butterfly, then shared memory in warp order), so repeated
 // launches are bit-identical.  No floating-point atomics.  Both variants
-// run in one launch: the first num_long * split thread blocks take the long
-// rows, the rest take the short rows eight at a time.
-#include <cooperative_groups.h>
+// run in one launch: the first num_long thread blocks take the long rows,
+// the rest take the short rows eight at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,7 +80,6 @@ constexpr int kThreads = 256;             // threads of a thread block
 constexpr int kWarps = kThreads / 32;     // short rows per thread block
 constexpr int kLoads = 8;                 // 16-byte loads per thread per round
 constexpr int kWarpBlockChunks = 256;     // largest block a warp takes (4 KB)
-constexpr int kMaxSplit = 8;              // portable cluster size
 constexpr int kPartials = kWarps * 128;  // row partials of a thread block
 
 // ---------------------------------------------------------------------------
@@ -302,14 +303,14 @@ __device__ __forceinline__ void short_row(
 }
 
 // ---------------------------------------------------------------------------
-// Long rows: one thread block per segment, one cluster per row.
+// Long rows: one thread block per block-row.
 // ---------------------------------------------------------------------------
 
 // The thread block's row sums of blocks [b0, b1), left in thread t < BM.
-// Blocks of at most 4 KB: the segment is cut into kWarps contiguous runs,
+// Blocks of at most 4 KB: the row is cut into kWarps contiguous runs,
 // one per warp (so that a lane reuses its x chunk for KPB rows of a block),
 // and the warps' sums meet in shared memory in warp order.  Larger blocks:
-// the thread block streams the segment as one team (Stream, W = kThreads),
+// the thread block streams the row as one team (Stream, W = kThreads),
 // and partial q = (t + W k) / RL of a butterfly over the RL lanes of a row
 // goes to shared memory; row i sums, in order, the partials j (C / RL) +
 // i (RC / RL) + e for the W / C block offsets j and the RC / RL warps e of
@@ -371,56 +372,28 @@ __device__ __forceinline__ typename Tr::Vec segment_sum(
 }
 
 template <class Tr, int BM, int BN>
-__device__ __forceinline__ void long_row(
-    const int32_t* __restrict__ block_cols, const uint4* __restrict__ data,
-    const typename Tr::Vec* __restrict__ x, typename Tr::Vec* __restrict__ y,
-    int4 task, int rank, int split) {
-  using Vec = typename Tr::Vec;
-  __shared__ Vec part[kPartials];
-  __shared__ Vec rowsum[BM];
-  const int t = threadIdx.x;
-  const long long len = task.z - task.y;
-  const int b0 = task.y + static_cast<int>(len * rank / split);
-  const int b1 = task.y + static_cast<int>(len * (rank + 1) / split);
-  const Vec sum = segment_sum<Tr, BM, BN>(block_cols, data, x, b0, b1, part);
-  Vec* yr = y + static_cast<size_t>(task.x) * BM;
-  if (split == 1) {
-    if (t < BM) yr[t] = sum;
-    return;
-  }
-  // The segments' sums meet in rank 0, in rank order, through the
-  // cluster's distributed shared memory.
-  if (t < BM) rowsum[t] = sum;
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  if (rank == 0 && t < BM) {
-    Vec total = sum;
-    for (int q = 1; q < split; ++q) {
-      total += cluster.map_shared_rank(rowsum, q)[t];
-    }
-    yr[t] = total;
-  }
-  cluster.sync();  // the other ranks' shared memory lives until rank 0 read it
-}
-
-template <class Tr, int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
 block_spmv_kernel(const int4* __restrict__ schedule,
                   const int32_t* __restrict__ block_cols,
                   const uint4* __restrict__ data,
                   const typename Tr::Vec* __restrict__ x,
-                  typename Tr::Vec* __restrict__ y, int num_long, int split,
+                  typename Tr::Vec* __restrict__ y, int num_long,
                   int num_short) {
-  const int long_blocks = num_long * split;
+  using Vec = typename Tr::Vec;
   const int b = blockIdx.x;
-  if (b < long_blocks) {
-    long_row<Tr, BM, BN>(block_cols, data, x, y,
-                         __ldg(schedule + b / split), b % split, split);
+  if (b < num_long) {
+    __shared__ Vec part[kPartials];
+    const int4 task = __ldg(schedule + b);
+    const Vec sum =
+        segment_sum<Tr, BM, BN>(block_cols, data, x, task.y, task.z, part);
+    if (threadIdx.x < BM) {
+      y[static_cast<size_t>(task.x) * BM + threadIdx.x] = sum;
+    }
     return;
   }
   constexpr int C = BM * (BN / Tr::V);
   if constexpr (C <= kWarpBlockChunks) {
-    const int i = (b - long_blocks) * kWarps + threadIdx.x / 32;
+    const int i = (b - num_long) * kWarps + threadIdx.x / 32;
     if (i < num_short) {
       short_row<Tr, BM, BN>(block_cols, data, x, y,
                             __ldg(schedule + num_long + i),
@@ -432,10 +405,8 @@ block_spmv_kernel(const int4* __restrict__ schedule,
 template <class Tr>
 int launch(const int4* schedule, const int32_t* block_cols, const void* data,
            const typename Tr::Vec* x, typename Tr::Vec* y, int num_block_rows,
-           int num_long, int split, int bm, int bn, int device,
-           cudaStream_t stream) {
-  if (num_block_rows < 0 || num_long < 0 || num_long > num_block_rows ||
-      split < 1 || split > kMaxSplit || (split & (split - 1)) != 0) {
+           int num_long, int bm, int bn, int device, cudaStream_t stream) {
+  if (num_block_rows < 0 || num_long < 0 || num_long > num_block_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
@@ -449,29 +420,16 @@ int launch(const int4* schedule, const int32_t* block_cols, const void* data,
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int num_short = num_block_rows - num_long;
-  const int short_blocks =
-      ((num_short + kWarps - 1) / kWarps + split - 1) / split * split;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(num_long * split + short_blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;  // no cluster when no row is split
+  const dim3 grid(num_long + (num_short + kWarps - 1) / kWarps);
   const uint4* blocks = static_cast<const uint4*>(data);
-#define OTT_BLOCK_SPMV_CASE(BM_, BN_)                                        \
-  if (bm == BM_ && bn == BN_) {                                              \
-    if (num_short > 0 && BM_ * (BN_ / Tr::V) > kWarpBlockChunks) {           \
-      return static_cast<int>(cudaErrorInvalidValue);                        \
-    }                                                                        \
-    return static_cast<int>(cudaLaunchKernelEx(                              \
-        &cfg, block_spmv_kernel<Tr, BM_, BN_>, schedule, block_cols, blocks, \
-        x, y, num_long, split, num_short));                                  \
+#define OTT_BLOCK_SPMV_CASE(BM_, BN_)                                      \
+  if (bm == BM_ && bn == BN_) {                                            \
+    if (num_short > 0 && BM_ * (BN_ / Tr::V) > kWarpBlockChunks) {         \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                      \
+    block_spmv_kernel<Tr, BM_, BN_><<<grid, kThreads, 0, stream>>>(        \
+        schedule, block_cols, blocks, x, y, num_long, num_short);          \
+    return static_cast<int>(cudaGetLastError());                           \
   }
   OTT_BLOCK_SPMV_CASE(8, 8)
   OTT_BLOCK_SPMV_CASE(8, 32)
@@ -496,29 +454,29 @@ extern "C" {
 
 int block_spmv_exact_f32(const void* schedule, const int32_t* block_cols,
                          const float* data, const float* x, float* y,
-                         int num_block_rows, int num_long, int split, int bm,
-                         int bn, int device, void* stream) {
+                         int num_block_rows, int num_long, int bm, int bn,
+                         int device, void* stream) {
   return launch<ExactF32>(static_cast<const int4*>(schedule), block_cols,
-                          data, x, y, num_block_rows, num_long, split, bm, bn,
-                          device, static_cast<cudaStream_t>(stream));
+                          data, x, y, num_block_rows, num_long, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int block_spmv_exact_f64(const void* schedule, const int32_t* block_cols,
                          const double* data, const double* x, double* y,
-                         int num_block_rows, int num_long, int split, int bm,
-                         int bn, int device, void* stream) {
+                         int num_block_rows, int num_long, int bm, int bn,
+                         int device, void* stream) {
   return launch<ExactF64>(static_cast<const int4*>(schedule), block_cols,
-                          data, x, y, num_block_rows, num_long, split, bm, bn,
-                          device, static_cast<cudaStream_t>(stream));
+                          data, x, y, num_block_rows, num_long, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int block_spmv_fast_bf16(const void* schedule, const int32_t* block_cols,
                          const void* data, const float* x, float* y,
-                         int num_block_rows, int num_long, int split, int bm,
-                         int bn, int device, void* stream) {
+                         int num_block_rows, int num_long, int bm, int bn,
+                         int device, void* stream) {
   return launch<FastBf16>(static_cast<const int4*>(schedule), block_cols,
-                          data, x, y, num_block_rows, num_long, split, bm, bn,
-                          device, static_cast<cudaStream_t>(stream));
+                          data, x, y, num_block_rows, num_long, bm, bn, device,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

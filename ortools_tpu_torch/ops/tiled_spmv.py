@@ -15,8 +15,7 @@ and adds a block-row CSR index over them (``BlockRowLayout``):
   long rows first, then the short ones, each longest first
   (``row_schedule``), one (block-row, first block, end block, 0) entry
   each, so that a kernel finds a row's blocks in one 16-byte load.  A
-  short row goes to one warp, a long one to ``split`` thread blocks of one
-  cluster.
+  short row goes to one warp, a long one to one thread block.
 
 ``tiled_matvec`` launches ``block_spmv_exact`` (``csrc/block_spmv.cu``)
 on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``.
@@ -38,15 +37,10 @@ import torch
 KERNEL_BLOCK_DIMS = (8, 32, 128)
 # A block-row goes to one warp when its blocks are at most WARP_BLOCK_BYTES
 # each (the kernel's limit: 8 loads of 16 bytes per lane per block) and at
-# most WARP_ROW_BYTES in all; otherwise it is long and goes to thread blocks
-# of 256 threads.
+# most WARP_ROW_BYTES in all; otherwise it is long and goes to a thread
+# block of 256 threads.
 WARP_BLOCK_BYTES = 4096
 WARP_ROW_BYTES = 65536
-# A long row is split over up to MAX_SPLIT thread blocks (one cluster) while
-# the long rows fill fewer than LONG_BLOCKS_TARGET thread blocks (about one
-# for each SM of an H100); a segment keeps at least two blocks of the row.
-MAX_SPLIT = 8
-LONG_BLOCKS_TARGET = 128
 
 
 class BlockRowLayout(NamedTuple):
@@ -60,7 +54,6 @@ class BlockRowLayout(NamedTuple):
     data_hi: Optional[torch.Tensor]  # bf16 [nb, bm, bn]: the fast stream
     schedule: torch.Tensor  # int32 [num_block_rows, 4]: long, then short
     num_long: int  # the first num_long rows of the schedule are long
-    split: int  # thread blocks (one cluster) per long row
     num_block_cols: int  # x has num_block_cols * bn entries
 
     @property
@@ -80,24 +73,16 @@ def block_row_order(block_rows: np.ndarray,
 
 def row_schedule(counts: np.ndarray, block_bytes: int):
     """The kernels' order of the block-rows, from their lengths in blocks
-    (``counts``) and the bytes of one block: returns ``(schedule, num_long,
-    split)``.  A row is long when a warp should not take it (see
+    (``counts``) and the bytes of one block: returns ``(schedule,
+    num_long)``.  A row is long when a warp should not take it (see
     ``WARP_BLOCK_BYTES``, ``WARP_ROW_BYTES``); long rows come first, then
     short ones, each longest first (a stable sort, so the schedule is a
-    function of ``counts``).  ``split`` doubles while the long rows fill
-    fewer than ``LONG_BLOCKS_TARGET`` thread blocks and the longest row
-    still gives each of its segments two blocks."""
+    function of ``counts``)."""
     counts = np.asarray(counts, dtype=np.int64)
     long_rows = ((counts * block_bytes > WARP_ROW_BYTES)
                  | (block_bytes > WARP_BLOCK_BYTES))
     order = np.lexsort((-counts, ~long_rows))
-    num_long = int(long_rows.sum())
-    longest = int(counts[long_rows].max()) if num_long else 0
-    split = 1
-    while (split < MAX_SPLIT and num_long * split < LONG_BLOCKS_TARGET
-           and 4 * split <= longest):
-        split *= 2
-    return order.astype(np.int32), num_long, split
+    return order.astype(np.int32), int(long_rows.sum())
 
 
 def schedule_table(order: np.ndarray, row_ptr: np.ndarray) -> np.ndarray:
@@ -125,7 +110,7 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
     counts = np.bincount(rows, minlength=num_block_rows)
     row_ptr = np.zeros(num_block_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=row_ptr[1:])
-    order, num_long, split = row_schedule(
+    order, num_long = row_schedule(
         counts, bm * bn * data.element_size())
     return BlockRowLayout(
         row_ptr=torch.as_tensor(row_ptr, device=data.device),
@@ -136,7 +121,6 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
         schedule=torch.as_tensor(schedule_table(order, row_ptr),
                                  device=data.device),
         num_long=num_long,
-        split=split,
         num_block_cols=padded_shape[1] // bn,
     )
 
@@ -215,7 +199,7 @@ def _launch(fn, t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
              ctypes.c_void_p(data.data_ptr()),
              ctypes.c_void_p(x.data_ptr()),
              ctypes.c_void_p(y.data_ptr()),
-             t.num_block_rows, t.num_long, t.split, bm, bn, x.device.index,
+             t.num_block_rows, t.num_long, bm, bn, x.device.index,
              ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -25,7 +25,7 @@ def cuda():
 
 
 # With the transposes, every block shape the kernels take; "skewed" is one
-# block-row of 96 blocks (a long row, split over a cluster), a quarter of
+# block-row of 96 blocks (a long row, one thread block's), a quarter of
 # the others with one block (short rows) and the rest empty.
 GPU_SHAPES = [
     (2048, 2048, 256, (8, 128)),

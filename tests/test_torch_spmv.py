@@ -168,23 +168,23 @@ def test_layout_schedule_covers_every_row_once(m, n, density, block_shape):
     assert np.all(np.diff(lengths[lay.num_long:]) <= 0)
 
 
-@pytest.mark.parametrize("counts,block_bytes,schedule,num_long,split", [
+@pytest.mark.parametrize("counts,block_bytes,schedule,num_long", [
     # 4 KB blocks: a row of 17+ blocks (over 64 KB) is long; ties keep order
-    ([0, 1, 96, 3, 20, 0, 4], 4096, [2, 4, 6, 3, 1, 0, 5], 2, 8),
+    ([0, 1, 96, 3, 20, 0, 4], 4096, [2, 4, 6, 3, 1, 0, 5], 2),
     # blocks over 4 KB are too large for a warp: every row is long
-    ([0, 1, 96, 3], 8192, [2, 3, 1, 0], 4, 8),
-    # no long row: nothing to split
-    ([2, 0, 2, 16], 4096, [3, 0, 2, 1], 0, 1),
-    # the longest row has 6 blocks: segments keep two blocks or more
-    ([6, 1], 8192, [0, 1], 2, 2),
-    # 128 long rows fill the card without a split
-    ([40] * 128, 4096, list(range(128)), 128, 1),
+    ([0, 1, 96, 3], 8192, [2, 3, 1, 0], 4),
+    # no long row
+    ([2, 0, 2, 16], 4096, [3, 0, 2, 1], 0),
+    # a row of exactly 64 KB is still a warp's; one block more is not
+    ([6, 1, 17, 16], 4096, [2, 3, 0, 1], 1),
+    # 128 long rows: one thread block each
+    ([40] * 128, 4096, list(range(128)), 128),
 ])
 def test_row_schedule_assigns_rows_by_length(counts, block_bytes, schedule,
-                                             num_long, split):
+                                             num_long):
     got = T.row_schedule(np.array(counts), block_bytes)
     np.testing.assert_array_equal(got[0], schedule)
-    assert got[1:] == (num_long, split)
+    assert got[1] == num_long
 
 
 def test_row_schedule_of_the_bench_lp():
@@ -195,11 +195,11 @@ def test_row_schedule_of_the_bench_lp():
     counts_a = np.bincount(cells // 128, minlength=2048)
     counts_at = np.bincount(cells % 128, minlength=128)
     # A^T: 128 rows of 16-49 blocks of 4 KB, each a thread block's
-    sched, num_long, split = T.row_schedule(counts_at, 128 * 8 * 4)
-    assert counts_at.min() > 16 and (num_long, split) == (128, 1)
+    sched, num_long = T.row_schedule(counts_at, 128 * 8 * 4)
+    assert counts_at.min() > 16 and num_long == 128
     # A: 2048 rows of 0-10 blocks, each a warp's, longest first
-    sched, num_long, split = T.row_schedule(counts_a, 8 * 128 * 4)
-    assert (num_long, split) == (0, 1)
+    sched, num_long = T.row_schedule(counts_a, 8 * 128 * 4)
+    assert num_long == 0
     assert counts_a[sched[0]] == counts_a.max() and counts_a.max() <= 16
 
 
@@ -210,5 +210,4 @@ def test_make_layout_is_deterministic():
     for name in ("row_ptr", "schedule", "block_cols", "data", "data_hi"):
         assert torch.equal(getattr(tm.tiled, name),
                            getattr(again.tiled, name)), name
-    assert (tm.tiled.num_long, tm.tiled.split) == (again.tiled.num_long,
-                                                   again.tiled.split)
+    assert tm.tiled.num_long == again.tiled.num_long
