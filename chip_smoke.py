@@ -22,15 +22,23 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 5. The main path at full width: ``pdlp.solve`` on the bench LP
    (block_random_lp 16384 x 16384, 4096 blocks of 8x128, seed 0, f32,
    default parameters) with an iteration limit, with the launch counters
-   set to 0 just before and read just after.  Then PDHG iter/s of each
-   stream (the solver's own majors), host syncs per major, peak device
-   memory, and each kernel's time at the bench shape beside its bound, its
-   plain version and a PyTorch sparse CSR product (L2-cold), with its
+   set to 0 just before and read just after.  Then, through the solver's
+   own majors (CUDA graphs replayed from static buffers): PDHG iter/s of
+   each stream, host syncs per major, graph capture time, device kernels
+   per iteration and the device's busy share of a major, and the time of
+   the statistics pass under ADAPTIVE_KKT and ADAPTIVE_HEURISTIC; peak
+   device memory; each kernel's time at the bench shape beside its bound,
+   its plain version and a PyTorch sparse CSR product (L2-cold), with its
    L2-warm time and, for the exact kernel, a block-sparse (BSR) product
    beside them; the launch floor (each kernel on a one-block matrix); and
    the kernels' times on the other block sizes of the same bytes (f64
    bench A and A^T, f32 32x128 and 128x128 blocks) beside their bounds.
-6. The ``kernels`` line (JSON), the card's name and power limit, and last
+6. The rest of the single-device solve: a moderate LP to OPTIMAL against
+   HiGHS under ADAPTIVE_HEURISTIC restarts, the Malitsky-Pock linesearch,
+   feasibility polishing and presolve (one solve each), and the bench LP
+   at full width under ADAPTIVE_HEURISTIC with Malitsky-Pock for 8 majors,
+   each with the launch counters set to 0 just before and read just after.
+7. The ``kernels`` line (JSON), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,6 +63,7 @@ from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
+from ortools_tpu_torch.pdlp.params import RestartStrategy
 from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
@@ -71,7 +80,7 @@ BENCH_PARAMS = dict(dtype=torch.float32, block_shape=(8, 128))
 MODERATE = dict(m=2048, n=2048, num_blocks=512, block_shape=(8, 128))
 MODERATE_SEEDS = (0, 1, 2, 3)
 BENCH_ITERATION_LIMIT = 64 * 8
-TIMED_MAJORS = 6
+TIMED_MAJORS = 12
 
 KERNELS = {
     "block_spmv_exact": dict(
@@ -301,6 +310,7 @@ def main_path(qp) -> dict:
                         record_iteration_stats=True, **BENCH_PARAMS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     pdlp_solver.host_syncs = 0
     reset_counters()
     r = solve(qp, params)
@@ -313,7 +323,8 @@ def main_path(qp) -> dict:
           f"set-up included); majors fast {streams.count('fast')} exact "
           f"{streams.count('exact')}; host syncs {pdlp_solver.host_syncs} "
           f"({pdlp_solver.host_syncs / max(1, len(streams)):.1f} per "
-          f"major); launches {launches}; max_memory_allocated {peak} bytes")
+          f"major); launches {launches}; max_memory_allocated {peak} bytes "
+          f"({held} held before the solve)")
     require(r.termination_reason == TerminationReason.ITERATION_LIMIT
             and r.iterations == BENCH_ITERATION_LIMIT,
             "bench solve did not run to its iteration limit")
@@ -330,82 +341,135 @@ def main_path(qp) -> dict:
     return launches
 
 
-def stream_rates(prob) -> tuple:
-    """Iter/s of the solver's own majors, fast stream then exact stream,
-    from one shared start; host syncs per major and the share of the
-    major's wall time the host spends blocked in them.  Returns the
-    seconds per major of each stream and the state reached."""
-    params = PdhgParams(**BENCH_PARAMS)
+def bench_majors(prob, **kw):
+    """The solver's majors on ``prob`` with the bench parameters (and
+    ``kw``), loaded with the initial state from the seed-0 power-iteration
+    start.  Each stream's graphs are captured at its first major."""
+    params = PdhgParams(**BENCH_PARAMS, **kw)
     g = torch.Generator(device="cpu").manual_seed(0)
     v0 = torch.randn(prob.c.shape[0], generator=g,
                      dtype=torch.float64).to(prob.c)
     sigma = pdlp_solver._make_power_iter(params)(prob, v0)
-    state = pdlp_solver._make_initial_state(params)(prob, sigma)
-    freq = params.termination_check_frequency
-    run_major = {name: pdlp_solver._make_run_major(params, fast=fast)
-                 for name, fast in (("fast", True), ("exact", False))}
-    for name in run_major:  # warm-up
-        state = run_major[name](prob, state)
-    torch.cuda.synchronize()
+    majors = pdlp_solver._Majors(prob, params)
+    majors.load(pdlp_solver._make_initial_state(params)(prob, sigma))
+    return majors
+
+
+def stream_rates(prob) -> tuple:
+    """Iter/s of the solver's own majors (captured graphs, replayed),
+    fast stream then exact stream, from one shared start; host syncs per
+    major and the share of the major's wall time the host spends blocked
+    in them.  Returns the seconds per major of each stream and the
+    majors."""
+    majors = bench_majors(prob)
+    freq = majors.freq
+    for name in ("fast", "exact"):  # a stream's first major captures it
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pdlp_solver.capture_seconds = 0.0
+        majors.major(name == "fast")
+        torch.cuda.synchronize()
+        print(f"{name} stream: capture of its major, tail and statistics "
+              f"graphs (warm-up included) {pdlp_solver.capture_seconds:.3f}"
+              f" s; device memory held after its first major +"
+              f"{torch.cuda.memory_allocated() - held0} bytes, peak during "
+              f"it +{torch.cuda.max_memory_allocated() - held0} bytes")
     # Host time varies from turn to turn: the streams take turns (fast,
     # exact, exact, fast), TIMED_MAJORS majors each, and sum their turns.
-    total = {name: [0.0, 0, 0.0] for name in run_major}  # s, syncs, blocked
+    total = {name: [0.0, 0, 0.0] for name in ("fast", "exact")}
     for name in ("fast", "exact", "exact", "fast"):
         syncs0 = pdlp_solver.host_syncs
         blocked0 = pdlp_solver.host_sync_seconds
         t0 = time.perf_counter()
         for _ in range(TIMED_MAJORS):
-            state = run_major[name](prob, state)
+            majors.major(name == "fast")
         torch.cuda.synchronize()
         t = total[name]
         t[0] += time.perf_counter() - t0
         t[1] += pdlp_solver.host_syncs - syncs0
         t[2] += pdlp_solver.host_sync_seconds - blocked0
-        require(bool(torch.isfinite(state.x).all()),
+        require(bool(torch.isfinite(majors.state.x).all()),
                 f"{name} stream majors gave a non-finite iterate")
     major_s = {}
     for name, (dt, syncs, blocked) in total.items():
-        majors = 2 * TIMED_MAJORS
-        print(f"{name} stream: {majors * freq / dt:.1f} PDHG iter/s "
-              f"({dt / majors * 1e3:.3f} ms per {freq}-step major); "
-              f"host syncs per major {syncs / majors:.1f}, host blocked in "
-              f"them {blocked / dt:.1%} of the major's wall time")
-        major_s[name] = dt / majors
-    return major_s, state
+        n_majors = 2 * TIMED_MAJORS
+        print(f"{name} stream: {n_majors * freq / dt:.1f} PDHG iter/s "
+              f"({dt / n_majors * 1e3:.3f} ms per {freq}-step major); "
+              f"host syncs per major {syncs / n_majors:.2f}, host blocked in"
+              f" them {blocked / dt:.1%} of the major's wall time")
+        major_s[name] = dt / n_majors
+    return major_s, majors
 
 
-def device_profile(prob, state, major_s: dict) -> None:
-    """One major of each stream under torch.profiler: device time by
-    kernel, device kernels per iteration, and the device's busy share of
-    an unprofiled major (``major_s``, from ``stream_rates``)."""
+def _graph(majors, kind: str, fast: bool):
+    return majors._graphs[(kind, fast)][0]
+
+
+def device_profile(majors, major_s: dict) -> None:
+    """Each stream's major graph and statistics graph under
+    torch.profiler: device kernels per iteration and device time by
+    kernel; then the device time of a major (the two graphs replayed back
+    to back, CUDA events, the host ahead of the device) against the wall
+    time of an unprofiled major (``major_s``, from ``stream_rates``): the
+    device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    params = PdhgParams(**BENCH_PARAMS)
-    freq = params.termination_check_frequency
+    freq = majors.freq
     for name, fast in (("fast", True), ("exact", False)):
-        run_major = pdlp_solver._make_run_major(params, fast=fast)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state = run_major(prob, state)
-            torch.cuda.synchronize()
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-        if not by_name:
-            print(f"{name} stream: the profiler saw no device time")
+        seen = {}
+        for kind in ("main", "stats"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _graph(majors, kind, fast).replay()
+                torch.cuda.synchronize()
+            by_name: dict = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    t, n = by_name.get(e.name, (0.0, 0))
+                    by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+            seen[kind] = by_name
+        graphs = [_graph(majors, kind, fast) for kind in ("main", "stats")]
+        device_ms = time_launches(
+            lambda: [g.replay() for g in graphs], [()], 10)
+        print(f"{name} stream: device time of a major (major and statistics"
+              f" graphs, CUDA events) {device_ms:.3f} ms, busy "
+              f"{device_ms / 1e3 / major_s[name]:.1%} of an unprofiled "
+              f"major ({major_s[name] * 1e3:.3f} ms)")
+        main, stats = seen["main"], seen["stats"]
+        if not main:
+            print(f"{name} stream: the profiler saw no device time in a "
+                  f"replayed graph; kernels per iteration not measured")
             continue
-        busy_us = sum(t for t, _ in by_name.values())
-        kernels = sum(n for _, n in by_name.values())
-        print(f"{name} stream, one profiled major: {kernels / freq:.1f} "
-              f"device kernels per iteration; device busy "
-              f"{busy_us / 1e3:.3f} ms, {busy_us / 1e6 / major_s[name]:.1%}"
-              f" of an unprofiled major ({major_s[name] * 1e3:.3f} ms)")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+        busy_us = sum(t for t, _ in main.values())
+        kernels = sum(n for _, n in main.values())
+        s_us = sum(t for t, _ in stats.values())
+        s_n = sum(n for _, n in stats.values())
+        print(f"{name} stream, profiled: {kernels / freq:.1f} device kernels"
+              f" per iteration, {busy_us / 1e3:.3f} ms of kernels in the "
+              f"major graph; statistics graph {s_n} kernels, "
+              f"{s_us / 1e3:.3f} ms")
+        top = sorted(main.items(), key=lambda kv: -kv[1][0])[:8]
         for kname, (t, n) in top:
             print(f"    {t / 1e3:9.3f} ms {n:6d}x  {kname[:100]}")
+
+
+def stats_times(prob) -> None:
+    """Milliseconds of one statistics pass (its graph replayed, CUDA
+    events) in each stream under ADAPTIVE_KKT and ADAPTIVE_HEURISTIC (the
+    latter adds the two trust-region bisections)."""
+    for rule in (RestartStrategy.ADAPTIVE_KKT,
+                 RestartStrategy.ADAPTIVE_HEURISTIC):
+        majors = bench_majors(prob, restart_strategy=rule)
+        times = []
+        for name, fast in (("fast", True), ("exact", False)):
+            majors.major(fast)
+            graph = _graph(majors, "stats", fast)
+            times.append(f"{name} {time_launches(graph.replay, [()], 20):.4f}"
+                         f" ms")
+        print(f"statistics pass under {rule.name}: {', '.join(times)}")
+        del majors
 
 
 def time_launches(fn, args_list, reps: int) -> float:
@@ -613,6 +677,77 @@ def kernel_times(prob) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6. The rest of the single-device solve
+# ---------------------------------------------------------------------------
+
+REST = (
+    ("ADAPTIVE_HEURISTIC",
+     dict(restart_strategy=RestartStrategy.ADAPTIVE_HEURISTIC)),
+    ("Malitsky-Pock", dict(linesearch_rule="malitsky_pock")),
+    ("feasibility polishing", dict(use_feasibility_polishing=True)),
+    ("presolve", dict(presolve=True)),
+)
+# The moderate LP seed whose solve opens polishing's gate (the objective
+# gap of the average met at a doubling checkpoint) before it ends.
+REST_SEED = 3
+
+
+def _counted_solve(qp, params):
+    """``solve`` with the launch counters and host syncs set to 0 just
+    before and read just after.  Returns the result and the host syncs
+    made beyond one a major of the main loop (the polishing majors, the
+    final statistics at a limit)."""
+    pdlp_solver.host_syncs = 0
+    reset_counters()
+    r = solve(qp, params)
+    torch.cuda.synchronize()
+    launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+    streams = [rec["stream"] for rec in r.iteration_stats]
+    extra = pdlp_solver.host_syncs - len(streams)
+    print(f"  {r.termination_reason.name} in {r.iterations} iterations, "
+          f"{r.solve_time_sec:.3f} s; majors fast {streams.count('fast')} "
+          f"exact {streams.count('exact')}; host syncs "
+          f"{pdlp_solver.host_syncs} ({extra} beyond one a major); "
+          f"launches {launches}", flush=True)
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched: {launches}")
+    return r, extra
+
+
+def rest_of_solve(bench_qp, seed: int = REST_SEED) -> None:
+    qp = block_random_lp(**MODERATE, seed=seed)
+    ref = highs_objective(qp)
+    for label, kw in REST:
+        print(f"moderate LP seed {seed}, {label}:")
+        r, extra = _counted_solve(
+            qp, PdhgParams(record_iteration_stats=True, **kw))
+        rel = abs(r.primal_objective - ref) / (1 + abs(ref))
+        print(f"  objective {r.primal_objective!r} HiGHS {ref!r} "
+              f"(rel {rel:.2e})")
+        require(r.termination_reason == TerminationReason.OPTIMAL,
+                f"moderate LP under {label} did not reach OPTIMAL")
+        require(rel <= 1e-4, f"moderate LP under {label} disagrees with "
+                f"HiGHS")
+        if kw.get("use_feasibility_polishing"):
+            require(extra > 0, "no polishing major ran")
+    print("bench LP, ADAPTIVE_HEURISTIC with Malitsky-Pock:")
+    r, _ = _counted_solve(bench_qp, PdhgParams(
+        iteration_limit=BENCH_ITERATION_LIMIT, record_iteration_stats=True,
+        restart_strategy=RestartStrategy.ADAPTIVE_HEURISTIC,
+        linesearch_rule="malitsky_pock", **BENCH_PARAMS))
+    require(r.termination_reason == TerminationReason.ITERATION_LIMIT
+            and r.iterations == BENCH_ITERATION_LIMIT,
+            "bench solve under ADAPTIVE_HEURISTIC with Malitsky-Pock did not"
+            " run to its iteration limit")
+    require(bool(np.all(np.isfinite(r.primal_solution))
+                 and np.all(np.isfinite(r.dual_solution)))
+            and all(np.isfinite(rec["kkt_current"])
+                    for rec in r.iteration_stats),
+            "bench solve under ADAPTIVE_HEURISTIC with Malitsky-Pock is not "
+            "finite")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -653,13 +788,19 @@ def main() -> int:
     launches = main_path(bench_qp)
     bench_prob = pdlp_solver.build_device_problem(bench_qp, bench_params,
                                                   "cuda")
-    major_s, state = stream_rates(bench_prob)
-    device_profile(bench_prob, state, major_s)
+    major_s, majors = stream_rates(bench_prob)
+    device_profile(majors, major_s)
+    del majors
+    stats_times(bench_prob)
     times = kernel_times(bench_prob)
     launch_floor()
     shape_times(bench_prob)
 
-    phase("6. kernels")
+    phase("6. the rest of the solve: ADAPTIVE_HEURISTIC, Malitsky-Pock, "
+          "polishing, presolve")
+    rest_of_solve(bench_qp)
+
+    phase("7. kernels")
     kernels = []
     for name, spec in KERNELS.items():
         a, at = times[(name, "A")], times[(name, "A^T")]

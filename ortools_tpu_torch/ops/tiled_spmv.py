@@ -22,13 +22,14 @@ on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``.
 On a CPU tensor each runs its plain version (gather + batched block
 mat-vec + ``index_add_``), which is also what the tests and
 ``chip_smoke.py`` hold the kernels against.  Each wrapper counts its
-kernel launches in ``.launches``.
+kernel launches in ``.launches``; a CUDA graph that captured launches adds
+them there at each replay (``count_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -251,3 +252,17 @@ def tiled_matvec_fast(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
 
 tiled_matvec.launches = 0
 tiled_matvec_fast.launches = 0
+
+
+def launch_counts() -> Tuple[int, int]:
+    """(exact, fast) kernel launches counted so far."""
+    return tiled_matvec.launches, tiled_matvec_fast.launches
+
+
+def count_launches(exact: int, fast: int) -> None:
+    """Add launches that the wrappers' code did not make itself: a CUDA
+    graph's replay launches the kernels it captured, while the capture,
+    which ran the wrappers, launched none (its counts are taken back with
+    negative numbers)."""
+    tiled_matvec.launches += exact
+    tiled_matvec_fast.launches += fast

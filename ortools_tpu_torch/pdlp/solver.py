@@ -4,25 +4,38 @@ in PyTorch (port of ``ortools_tpu/pdlp/solver.py``).
 Function for function the JAX module's single-device path, so that each
 function can be held against its twin on one shared problem and state:
 host rescaling and upload (``_ruiz_and_l2_rescale``,
-``build_device_problem``), power iteration, the adaptive PDHG step
-(``_make_iteration``), majors of ``termination_check_frequency`` steps,
-device-side statistics, restarts, and the ``solve()`` host loop with the
+``build_device_problem``), power iteration, the adaptive and the
+Malitsky-Pock PDHG steps, majors of ``termination_check_frequency`` steps,
+device-side statistics (with the trust-region localized gaps of the
+ADAPTIVE_HEURISTIC restart rule and random projections), restarts,
+feasibility polishing, presolve, and the ``solve()`` host loop with the
 mixed-precision (bf16 stream) controller.
 
 What differs from the JAX module:
 
-- PyTorch runs eagerly, so the step-acceptance loop of ``_make_iteration``
-  reads one device boolean per attempt (counted in ``host_syncs``).  The
-  per-major statistics come to the host in one device-to-host copy.
+- The step-acceptance ``while_loop`` and the major's ``fori_loop`` become
+  a sequence of *attempt slots* (``_make_iteration``,
+  ``_make_mp_iteration``).  A slot runs one step attempt from the open
+  iteration's start and, where the attempt ends the iteration (accepted,
+  or the attempt cap reached), commits it with ``torch.where``; once the
+  major has its ``termination_check_frequency`` iterations, further slots
+  change nothing.  A selection is exact, so the values are the loop's.
+  Slots update static buffers in place (``_Majors``).  On a card a major
+  is ``termination_check_frequency`` slots captured in one CUDA graph per
+  stream and replayed, and its statistics a second graph; the host reads
+  one copy of the statistics and of the major's progress, and replays a
+  graph of a few more slots only where rejected attempts left the major
+  short.  On the CPU the same slots run eagerly.  The adaptive rule's
+  rejected attempt costs one Aᵀy product that the loop did not make.
 - Every SpMV on a card launches the block-row CUDA kernels
   (``ops/csrc/block_spmv.cu``); the f32 objective reductions accumulate in
   float64 (``ops/df32.py``).
-- The power-iteration start ``v0`` may be passed in; by default it is
-  drawn from a ``torch.Generator`` seeded with 0 (other numbers than
-  ``jax.random``).
-- Not ported yet, and refused with ``NotImplementedError``: the
-  ADAPTIVE_HEURISTIC restart rule, the Malitsky-Pock linesearch,
-  feasibility polishing, presolve, random projections and meshes.
+- Random vectors come from ``torch.Generator`` (other numbers than
+  ``jax.random`` for the same seed): the power-iteration start ``v0``
+  (seed 0; it may be passed in) and the projection vectors of
+  ``random_projection_seeds`` (seeds ``s`` and ``s + 1``, as the JAX
+  module keys them).
+- Not ported yet, and refused with ``NotImplementedError``: meshes.
 """
 
 from __future__ import annotations
@@ -37,17 +50,21 @@ import scipy.sparse as sp
 import torch
 
 from ortools_tpu_torch.models.lp import QuadraticProgram
+from ortools_tpu_torch.ops import tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix, auto_block_shape
 from ortools_tpu_torch.ops.df32 import sum_df32, vdot_df32
+from ortools_tpu_torch.pdlp import trust_region
 from ortools_tpu_torch.pdlp.params import OptimalityNorm, PdhgParams, RestartStrategy
 from ortools_tpu_torch.utils.device import resolve_device
 from ortools_tpu_torch.utils.status import TerminationReason
 
-# Device-to-host reads made by the solver: one per step attempt (the
-# acceptance test) and one per major (its statistics), and the host time
-# spent blocked in them.  Plain counters that callers may reset and read.
+# Device-to-host reads made by the majors (one per major and its
+# statistics, one more for each round of extra slots a major needs) and
+# the host time spent blocked in them; the seconds spent capturing CUDA
+# graphs.  Plain counters that callers may reset and read.
 host_syncs = 0
 host_sync_seconds = 0.0
+capture_seconds = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -289,98 +306,183 @@ def _dual_prox(y_hat, sigma, con_lb, con_ub):
     return torch.where(pos > 0, pos, torch.where(neg < 0, neg, 0.0))
 
 
+class _Slots(NamedTuple):
+    """The static buffers a major runs on: the PDHG state and the open
+    iteration's attempt state.  Attempt slots update them in place."""
+
+    state: PdhgState
+    attempts: torch.Tensor  # int32: attempts made in the open iteration
+    trial: torch.Tensor  # the open iteration's next trial step (see slots)
+    accepted: torch.Tensor  # int32: iterations accepted in this major
+
+
+def _select_(dst: torch.Tensor, cond: torch.Tensor, new: torch.Tensor):
+    """dst = new where cond, in place."""
+    torch.where(cond, new, dst, out=dst)
+
+
+def _commit(s: _Slots, active, ends, attempts, trial, **fields) -> None:
+    """Write one attempt's outcome into the buffers: ``fields`` (new
+    PdhgState values) where the attempt ends the iteration, the counters
+    where the slot is active.  Every value is computed before any buffer
+    is written."""
+    st = s.state
+    for name, v in fields.items():
+        _select_(getattr(st, name), ends, v)
+    _select_(st.num_steps, active, st.num_steps + 1)
+    _select_(st.num_accepted, ends, st.num_accepted + 1)
+    _select_(s.trial, active, trial)
+    _select_(s.attempts, active, attempts)
+    s.attempts.masked_fill_(ends, 0)
+    _select_(s.accepted, ends, s.accepted + 1)
+
+
 def _make_iteration(params: PdhgParams, fast: bool = False):
-    """One adaptive PDHG step (reference TakeAdaptiveStep).  The attempt
-    loop runs on the host and reads the acceptance flag once per attempt;
-    everything else stays on the device."""
+    """One attempt slot of the adaptive PDHG step (reference
+    TakeAdaptiveStep), in place on a major's buffers: ``slot(prob, s)``.
+
+    The JAX module's attempt ``while_loop`` retries from the iteration's
+    start until ``step <= limit`` or ``max_step_attempts`` attempts, then
+    takes the last candidate.  A slot is one pass of that loop's body: it
+    tries ``s.trial`` (the iteration's step size on its first attempt),
+    and where the attempt ends the iteration it commits the candidate,
+    A x', the fresh Aᵀ y' (SpMV; computed on every attempt), the step and
+    the sums.  Once ``s.accepted`` reaches ``termination_check_frequency``
+    the slot changes nothing.  Nothing in it reads a device value, so a
+    sequence of slots can be captured in a CUDA graph."""
     if params.linesearch_rule == "malitsky_pock":
-        raise NotImplementedError(_DEFERRED["malitsky_pock"])
+        return _make_mp_iteration(params, fast)
     reduction_exp = params.step_size_reduction_exponent
     growth_exp = params.step_size_growth_exponent
     max_attempts = params.max_step_attempts
+    freq = params.termination_check_frequency
 
-    def iteration(prob: DeviceProblem, state: PdhgState) -> PdhgState:
-        global host_syncs, host_sync_seconds
+    def slot(prob: DeviceProblem, s: _Slots) -> None:
         mv = _make_matvecs(prob.a, prob.at, fast)
+        st = s.state
         dtype = prob.c.dtype
         tiny = torch.finfo(dtype).tiny
-        grad = prob.c + prob.q * state.x - state.aty
-        omega = state.primal_weight
-        step = state.step_size
-        num_steps = state.num_steps
-        x_new, y_new, ax_mid = state.x, state.y, state.ax
-        attempts = 0
-        # Temporaries are updated in place where that saves a vector; the
-        # state's own tensors never are, so a fast major can be rewound.
-        while attempts < max_attempts:
-            tau = step / omega
-            sigma = step * omega
-            x_cand = (state.x - tau * grad).clamp_(prob.var_lb, prob.var_ub)
-            ax_mid = mv.matvec(2.0 * x_cand - state.x)  # SpMV
-            y_hat = state.y - sigma * ax_mid
-            y_cand = _dual_prox(y_hat, sigma, prob.con_lb, prob.con_ub)
-            dx = x_cand - state.x
-            dy = y_cand - state.y
-            movement = 0.5 * (
-                omega * torch.dot(dx, dx) + torch.dot(dy, dy) / omega
-            )
-            interaction = torch.abs(
-                torch.dot(dy, ax_mid - state.ax)
-            ) * 0.5 + 0.5 * torch.dot(dx, prob.q * dx)
-            limit = torch.where(
-                interaction > 0,
-                movement / torch.clamp(interaction, min=tiny), math.inf)
-            accepted = step <= limit
-            k = (num_steps + 1).to(dtype)
-            first = (1.0 - k ** (-reduction_exp)) * limit
-            second = (1.0 + k ** (-growth_exp)) * step
-            new_step = torch.minimum(first, second)
-            # Guard against a zero/NaN step killing the solve.
-            step = torch.where(
-                torch.isfinite(new_step) & (new_step > 0), new_step,
-                step * 0.5)
-            num_steps = num_steps + 1
-            attempts += 1
-            x_new, y_new = x_cand, y_cand
-            host_syncs += 1
-            t0 = time.perf_counter()
-            done = bool(accepted)
-            host_sync_seconds += time.perf_counter() - t0
-            if done:
-                break
-        # On acceptance: A x_new = (A(2x'-x) + A x)/2; fresh A^T y (SpMV).
-        ax_new = 0.5 * (ax_mid + state.ax)
-        aty_new = mv.rmatvec(y_new)  # SpMV
-        weight = state.step_size
-        return PdhgState(
-            x=x_new,
-            y=y_new,
-            ax=ax_new,
-            aty=aty_new,
-            step_size=step,
-            primal_weight=state.primal_weight,
-            x_sum=state.x_sum + weight * x_new,
-            y_sum=state.y_sum + weight * y_new,
-            sum_weights=state.sum_weights + weight,
-            x_restart=state.x_restart,
-            y_restart=state.y_restart,
-            num_steps=num_steps,
-            num_accepted=state.num_accepted + 1,
-            kkt_passes=state.kkt_passes + 0.5 * (attempts + 1.0),
-            step_ratio=state.step_ratio,
+        active = s.accepted < freq
+        grad = prob.c + prob.q * st.x - st.aty
+        omega = st.primal_weight
+        step = torch.where(s.attempts == 0, st.step_size, s.trial)
+        tau = step / omega
+        sigma = step * omega
+        x_cand = (st.x - tau * grad).clamp_(prob.var_lb, prob.var_ub)
+        ax_mid = mv.matvec(2.0 * x_cand - st.x)  # SpMV
+        y_hat = st.y - sigma * ax_mid
+        y_cand = _dual_prox(y_hat, sigma, prob.con_lb, prob.con_ub)
+        dx = x_cand - st.x
+        dy = y_cand - st.y
+        movement = 0.5 * (
+            omega * torch.dot(dx, dx) + torch.dot(dy, dy) / omega
+        )
+        # A dx = (A(2x'-x) - Ax)/2; for QPs the quadratic objective adds
+        # 1/2 dx^T Q dx to the nonlinearity.
+        interaction = torch.abs(
+            torch.dot(dy, ax_mid - st.ax)
+        ) * 0.5 + 0.5 * torch.dot(dx, prob.q * dx)
+        limit = torch.where(
+            interaction > 0,
+            movement / torch.clamp(interaction, min=tiny), math.inf)
+        k = (st.num_steps + 1).to(dtype)
+        first = (1.0 - k ** (-reduction_exp)) * limit
+        second = (1.0 + k ** (-growth_exp)) * step
+        new_step = torch.minimum(first, second)
+        # Guard against a zero/NaN step killing the solve.
+        new_step = torch.where(
+            torch.isfinite(new_step) & (new_step > 0), new_step, step * 0.5)
+        attempts = s.attempts + 1
+        ends = active & ((step <= limit) | (attempts >= max_attempts))
+        # On acceptance: A x' = (A(2x'-x) + A x)/2; fresh Aᵀ y' (SpMV).
+        aty_new = mv.rmatvec(y_cand)
+        weight = st.step_size
+        _commit(
+            s, active, ends, attempts, new_step,
+            x=x_cand, y=y_cand, ax=0.5 * (ax_mid + st.ax), aty=aty_new,
+            step_size=new_step,
+            x_sum=st.x_sum + weight * x_cand,
+            y_sum=st.y_sum + weight * y_cand,
+            sum_weights=st.sum_weights + weight,
+            kkt_passes=st.kkt_passes + 0.5 * (attempts.to(dtype) + 1.0),
         )
 
-    return iteration
+    return slot
+
+
+def _make_mp_iteration(params: PdhgParams, fast: bool = False):
+    """One attempt slot of the Malitsky-Pock linesearch (reference
+    primal_dual_hybrid_gradient.cc:2211 TakeMalitskyPockStep;
+    arXiv:1608.08883), in the slot form of ``_make_iteration``.
+
+    One primal prox per iteration; the dual linesearch scales the trial
+    primal step tau (``s.trial``; on the first attempt tau times the
+    dilation) by ``mp_step_downscaling`` until
+        omega * tau * ||Aᵀ(y+ - y)|| <= mp_contraction * ||y+ - y||,
+    at most ``max(max_step_attempts, 60)`` attempts.  A x+ comes from
+    A(extrapolated) by linearity.  As in the JAX module, one step-weighted
+    average serves primal and dual."""
+    downscaling = params.mp_step_downscaling
+    contraction = params.mp_contraction
+    interpolation = params.mp_interpolation
+    max_attempts = max(params.max_step_attempts, 60)
+    freq = params.termination_check_frequency
+
+    def slot(prob: DeviceProblem, s: _Slots) -> None:
+        mv = _make_matvecs(prob.a, prob.at, fast)
+        st = s.state
+        dtype = prob.c.dtype
+        tiny = torch.finfo(dtype).tiny
+        active = s.accepted < freq
+        omega = st.primal_weight
+        grad = prob.c + prob.q * st.x - st.aty
+        tau = st.step_size / omega
+        x_cand = (st.x - tau * grad).clamp_(prob.var_lb, prob.var_ub)
+        dx = x_cand - st.x
+        dilating = 1.0 + interpolation * (
+            torch.sqrt(1.0 + st.step_ratio) - 1.0)
+        tau_new = torch.where(s.attempts == 0, tau * dilating, s.trial)
+        theta = tau_new / torch.clamp(tau, min=tiny)
+        sigma = omega * omega * tau_new
+        ax_e = mv.matvec(x_cand + theta * dx)  # SpMV
+        y_hat = st.y - sigma * ax_e
+        y_cand = _dual_prox(y_hat, sigma, prob.con_lb, prob.con_ub)
+        aty_cand = mv.rmatvec(y_cand)  # SpMV
+        dy = y_cand - st.y
+        dp = aty_cand - st.aty
+        accepted = (omega * tau_new * torch.sqrt(torch.dot(dp, dp))
+                    <= contraction * torch.sqrt(torch.dot(dy, dy)))
+        next_tau = torch.where(accepted, tau_new, downscaling * tau_new)
+        attempts = s.attempts + 1
+        ends = active & (accepted | (attempts >= max_attempts))
+        _commit(
+            s, active, ends, attempts, next_tau,
+            x=x_cand, y=y_cand,
+            # A x' from A(x' + theta dx) and A x by linearity.
+            ax=(ax_e + theta * st.ax) / (1.0 + theta),
+            aty=aty_cand,
+            step_size=next_tau * omega,
+            x_sum=st.x_sum + next_tau * x_cand,
+            y_sum=st.y_sum + next_tau * y_cand,
+            sum_weights=st.sum_weights + next_tau,
+            kkt_passes=st.kkt_passes + attempts.to(dtype),
+            step_ratio=theta,
+        )
+
+    return slot
 
 
 def _make_run_major(params: PdhgParams, fast: bool = False):
-    iteration = _make_iteration(params, fast)
-    freq = params.termination_check_frequency
+    """One major as a function of a state: ``run_major(prob, state)``
+    returns the state after ``termination_check_frequency`` iterations
+    (a fresh ``_Majors`` each call: CUDA graphs on a card, eager slots on
+    the CPU)."""
 
     def run_major(prob: DeviceProblem, state: PdhgState) -> PdhgState:
-        for _ in range(freq):
-            state = iteration(prob, state)
-        return state
+        majors = _Majors(prob, params)
+        majors.load(state)
+        majors.major(fast)
+        return majors.snapshot()
 
     return run_major
 
@@ -521,16 +623,32 @@ def _infeasibility_stats(prob: DeviceProblem, x_r, y_r,
     )
 
 
+def _projection_vectors(seed: int, n: int, m: int, dtype: torch.dtype,
+                        device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The random-projection vectors of one seed: standard normal draws
+    in float64 from a ``torch.Generator`` seeded with ``seed`` (primal,
+    length n) and ``seed + 1`` (dual, length m), cast to ``dtype``.  The
+    JAX module keys ``jax.random.normal`` with the same two seeds, which
+    gives other numbers."""
+    def draw(s, size):
+        g = torch.Generator(device="cpu").manual_seed(s)
+        return torch.randn(size, generator=g, dtype=torch.float64).to(
+            dtype=dtype, device=device)
+
+    return draw(seed, n), draw(seed + 1, m)
+
+
 def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
     """``exact_refresh`` recomputes A x / Aᵀ y for the CURRENT iterate with
     the exact kernel — required while the major loop runs the bf16 fast
     stream, where state.ax/state.aty carry ~2^-9 matrix rounding.  Every
-    termination decision therefore rests on exact residuals."""
-    if params.restart_strategy == RestartStrategy.ADAPTIVE_HEURISTIC:
-        raise NotImplementedError(_DEFERRED["adaptive_heuristic"])
-    if params.random_projection_seeds:
-        raise NotImplementedError(_DEFERRED["random_projections"])
+    termination decision therefore rests on exact residuals.  Nothing
+    here reads a device value, so the statistics can be captured in a
+    CUDA graph; the projection vectors are drawn at the first call."""
     norm = params.optimality_norm
+    seeds = tuple(params.random_projection_seeds)
+    heuristic = params.restart_strategy == RestartStrategy.ADAPTIVE_HEURISTIC
+    projection_vectors: dict = {}
 
     def compute_stats(prob: DeviceProblem, state: PdhgState) -> dict:
         mv = _make_matvecs(prob.a, prob.at)
@@ -557,10 +675,23 @@ def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
                 + gap**2
             )
 
-        return dict(
+        # Gaussian random projections of the iterate (reference
+        # SetRandomProjections, iteration_stats.cc:321-346).
+        projections = {}
+        n, m = state.x.shape[0], state.y.shape[0]
+        for seed in seeds:
+            key = (seed, n, m, state.x.dtype, state.x.device)
+            if key not in projection_vectors:
+                projection_vectors[key] = _projection_vectors(
+                    seed, n, m, state.x.dtype, state.x.device)
+            kx, ky = projection_vectors[key]
+            projections[f"primal_{seed}"] = torch.dot(kx, state.x) / math.sqrt(n)
+            projections[f"dual_{seed}"] = torch.dot(ky, state.y) / math.sqrt(m)
+
+        out = dict(
             current={k: v for k, v in cur.items() if k != "reduced_costs"},
             average={k: v for k, v in avg.items() if k != "reduced_costs"},
-            projections={},
+            projections=projections,
             kkt_current=kkt(cur),
             kkt_average=kkt(avg),
             x_avg=x_avg,
@@ -578,39 +709,58 @@ def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
             ),
             infeas_current=_infeasibility_stats(prob, state.x, state.y, mv),
         )
+        if heuristic:
+            out["tr_current"] = trust_region.localized_gap(
+                prob, state.x, state.y, ax_c, aty_c,
+                state.x_restart, state.y_restart, omega,
+            )._asdict()
+            out["tr_average"] = trust_region.localized_gap(
+                prob, x_avg, y_avg, ax_avg, aty_avg,
+                state.x_restart, state.y_restart, omega,
+            )._asdict()
+        return out
 
     return compute_stats
 
 
-_SCALAR_GROUPS = ("current", "average", "infeas_diff", "infeas_current")
-_SCALAR_KEYS = ("kkt_current", "kkt_average", "kkt_passes", "step_size",
-                "primal_weight")
-
-
-def _stats_to_host(stats: dict) -> dict:
-    """The scalars of ``compute_stats`` as Python floats, brought to the
-    host in ONE device-to-host copy: {group: {name: float}} for the
-    grouped scalars and {name: float} for the others."""
-    global host_syncs, host_sync_seconds
-    names, vals = [], []
-    for g in _SCALAR_GROUPS:
-        for k, v in stats[g].items():
-            names.append((g, k))
+def _stats_scalars(stats: dict, extra: Optional[dict] = None):
+    """The 0-d tensors of ``compute_stats`` (and of ``extra``) stacked in
+    one float64 vector: returns (groups, names, vector), where ``names``
+    holds (group or None, name) per entry."""
+    groups, names, vals = [], [], []
+    for k, v in list(stats.items()) + list((extra or {}).items()):
+        if isinstance(v, dict):
+            groups.append(k)
+            for kk, vv in v.items():
+                names.append((k, kk))
+                vals.append(vv)
+        elif v.dim() == 0:
+            names.append((None, k))
             vals.append(v)
-    for k in _SCALAR_KEYS:
-        names.append((None, k))
-        vals.append(stats[k])
+    return groups, names, torch.stack([v.to(torch.float64) for v in vals])
+
+
+def _read_scalars(groups, names, flat: torch.Tensor) -> dict:
+    """``_stats_scalars``' vector as Python floats in ONE device-to-host
+    copy: {group: {name: float}} for the grouped entries and {name: float}
+    for the others."""
+    global host_syncs, host_sync_seconds
     host_syncs += 1
     t0 = time.perf_counter()
-    flat = torch.stack(vals).cpu().tolist()
+    values = flat.cpu().tolist()
     host_sync_seconds += time.perf_counter() - t0
-    out = {g: {} for g in _SCALAR_GROUPS}
-    for (g, k), v in zip(names, flat):
+    out = {g: {} for g in groups}
+    for (g, k), v in zip(names, values):
         if g is None:
             out[k] = v
         else:
             out[g][k] = v
     return out
+
+
+def _stats_to_host(stats: dict) -> dict:
+    """The scalars of ``compute_stats`` on the host, in one copy."""
+    return _read_scalars(*_stats_scalars(stats))
 
 
 def _make_apply_restart(params: PdhgParams):
@@ -649,6 +799,202 @@ def _make_apply_restart(params: PdhgParams):
         )
 
     return apply_restart
+
+
+# ---------------------------------------------------------------------------
+# Majors on static buffers: CUDA graphs on a card, eager slots on the CPU
+# ---------------------------------------------------------------------------
+
+
+_PROBLEM_VECTORS = tuple(f for f in DeviceProblem._fields
+                         if f not in ("a", "at"))
+
+
+# One capture stream per card, shared by every solve: cuBLAS keeps a
+# workspace (32 MiB on Hopper) for each stream it has run on, for the life
+# of the process.
+_capture_streams: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _capture_streams:
+        _capture_streams[index] = torch.cuda.Stream(device=index)
+    return _capture_streams[index]
+
+
+def _clone_slots(s: _Slots) -> _Slots:
+    return _Slots(PdhgState(*[v.clone() for v in s.state]),
+                  *[v.clone() for v in s[1:]])
+
+
+class _Majors:
+    """Majors of PDHG iterations on one problem, on static buffers.
+
+    ``load`` copies a state into the buffers; ``major(fast)`` runs one
+    major of the exact or the fast (bf16) stream and its statistics, and
+    returns them as device tensors (valid until the next call) and as
+    scalars on the host; ``stats`` gives the statistics alone; ``state``
+    is the live buffers, ``snapshot`` a copy of them; ``set_problem``
+    copies another problem's vectors (same matrices) into the problem the
+    majors read, which is how polishing runs its subproblems on the same
+    graphs.
+
+    On a card each stream is captured once as three CUDA graphs that share
+    the buffers and one memory pool: the major (its count reset, then
+    ``termination_check_frequency`` attempt slots), a tail of
+    ``ceil(frequency / 8)`` slots, and the statistics with their scalars
+    stacked in one vector.  A major replays the first and the last and
+    reads the scalars and the major's count of accepted iterations in one
+    copy.  Where rejected attempts left the major short, it replays enough
+    tails for the iterations left at the acceptance rate seen so far, then
+    the statistics again.  A failed capture raises.  A capture launches
+    nothing, so each replay adds the kernel launches it captured to the
+    wrappers' counters.  On the CPU the same functions run eagerly in the
+    same order.
+    """
+
+    def __init__(self, prob: DeviceProblem, params: PdhgParams):
+        self.params = params
+        self.freq = params.termination_check_frequency
+        self.tail_slots = -(-self.freq // 8)
+        self.max_attempts = params.max_step_attempts
+        if params.linesearch_rule == "malitsky_pock":
+            self.max_attempts = max(params.max_step_attempts, 60)
+        self.use_graphs = prob.c.device.type == "cuda"
+        self.prob = prob._replace(**{f: getattr(prob, f).clone()
+                                     for f in _PROBLEM_VECTORS})
+        self.slots: Optional[_Slots] = None
+        self._fns: dict = {}
+        self._graphs: dict = {}
+        self._pool = None
+
+    # -- buffers ----------------------------------------------------------
+    @property
+    def state(self) -> PdhgState:
+        return self.slots.state
+
+    def load(self, state: PdhgState) -> None:
+        """Copy ``state`` into the buffers (allocated at the first call).
+        A field that is another field's buffer is cloned first."""
+        if self.slots is None:
+            st = PdhgState(*[v.clone() for v in state])
+            count = torch.zeros((), dtype=torch.int32, device=st.x.device)
+            self.slots = _Slots(st, count, torch.zeros_like(st.step_size),
+                                count.clone())
+            return
+        bufs = self.slots.state
+        where = {id(b): i for i, b in enumerate(bufs)}
+        srcs = []
+        for i, v in enumerate(state):
+            j = where.get(id(v))
+            srcs.append(v if j is None else None if j == i else v.clone())
+        for b, v in zip(bufs, srcs):
+            if v is not None:
+                b.copy_(v)
+        self.slots.attempts.zero_()
+
+    def snapshot(self) -> PdhgState:
+        return PdhgState(*[v.clone() for v in self.slots.state])
+
+    def set_problem(self, prob: DeviceProblem) -> None:
+        if prob.a is not self.prob.a or prob.at is not self.prob.at:
+            raise ValueError("set_problem takes a problem with the same "
+                             "matrices")
+        for f in _PROBLEM_VECTORS:
+            getattr(self.prob, f).copy_(getattr(prob, f))
+
+    # -- what a graph holds ------------------------------------------------
+    def _functions(self, fast: bool):
+        if fast not in self._fns:
+            self._fns[fast] = (
+                _make_iteration(self.params, fast),
+                _make_compute_stats(self.params, exact_refresh=fast))
+        return self._fns[fast]
+
+    def _main(self, fast: bool) -> None:
+        slot, _ = self._functions(fast)
+        self.slots.accepted.zero_()
+        for _ in range(self.freq):
+            slot(self.prob, self.slots)
+
+    def _tail(self, fast: bool) -> None:
+        slot, _ = self._functions(fast)
+        for _ in range(self.tail_slots):
+            slot(self.prob, self.slots)
+
+    def _stats(self, fast: bool):
+        _, compute_stats = self._functions(fast)
+        stats = compute_stats(self.prob, self.slots.state)
+        return stats, _stats_scalars(
+            stats, dict(major_accepted=self.slots.accepted))
+
+    def _run(self, kind: str, fast: bool):
+        fn = getattr(self, "_" + kind)
+        if not self.use_graphs:
+            return fn(fast)
+        if (kind, fast) not in self._graphs:
+            self._capture(fast)
+        graph, out, launches = self._graphs[(kind, fast)]
+        graph.replay()
+        tiled_spmv.count_launches(*launches)
+        return out
+
+    def _capture(self, fast: bool) -> None:
+        """Capture the stream's three graphs, after one warm-up of the
+        slot and the statistics on scratch buffers on the capture stream
+        (kernel modules load, cuBLAS takes its workspace, the projection
+        vectors are drawn: nothing of that may happen inside a capture)."""
+        global capture_seconds
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        stream = _capture_stream(self.prob.c.device)
+        slot, compute_stats = self._functions(fast)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            scratch = _clone_slots(self.slots)
+            slot(self.prob, scratch)
+            compute_stats(self.prob, scratch.state)
+            del scratch
+        torch.cuda.current_stream().wait_stream(stream)
+        for kind in ("main", "tail", "stats"):
+            before = tiled_spmv.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                out = getattr(self, "_" + kind)(fast)
+            launches = tuple(a - b for a, b in
+                             zip(tiled_spmv.launch_counts(), before))
+            tiled_spmv.count_launches(*(-n for n in launches))
+            self._graphs[(kind, fast)] = (graph, out, launches)
+        capture_seconds += time.perf_counter() - t0
+
+    # -- majors -------------------------------------------------------------
+    def major(self, fast: bool = False) -> Tuple[dict, dict]:
+        """One major (``termination_check_frequency`` accepted iterations)
+        and its statistics: (device stats, host scalars)."""
+        self._run("main", fast)
+        slots_run = self.freq
+        while True:
+            stats, scalars = self._run("stats", fast)
+            host = _read_scalars(*scalars)
+            done = int(host.pop("major_accepted"))
+            left = self.freq - done
+            if left <= 0:
+                return stats, host
+            need = min(left * self.max_attempts,
+                       -(-left * slots_run // max(done, 1)))
+            for _ in range(-(-need // self.tail_slots)):
+                self._run("tail", fast)
+                slots_run += self.tail_slots
+
+    def stats(self, fast: bool = False) -> Tuple[dict, dict]:
+        """The statistics of the state in the buffers."""
+        stats, scalars = self._run("stats", fast)
+        host = _read_scalars(*scalars)
+        host.pop("major_accepted")
+        return stats, host
 
 
 # ---------------------------------------------------------------------------
@@ -705,6 +1051,42 @@ def _make_initial_state(params: PdhgParams):
     return initial_state
 
 
+def _make_warm_state(params: PdhgParams):
+    """State from a given (x0, y0) start with inherited step and weight:
+    the feasibility-polishing entry point (reference Solver ctor with
+    starting solutions, primal_dual_hybrid_gradient.cc:2594-2599)."""
+
+    def warm_state(prob: DeviceProblem, x0, y0, step,
+                   weight) -> PdhgState:
+        mv = _make_matvecs(prob.a, prob.at)
+        dtype, device = prob.c.dtype, prob.c.device
+
+        def scalar(v, dt=dtype):
+            return torch.tensor(v, dtype=dt, device=device)
+
+        x0 = torch.clamp(x0.to(dtype), prob.var_lb, prob.var_ub)
+        y0 = y0.to(dtype)
+        return PdhgState(
+            x=x0,
+            y=y0,
+            ax=mv.matvec(x0),
+            aty=mv.rmatvec(y0),
+            step_size=step.to(dtype),
+            primal_weight=weight.to(dtype),
+            x_sum=torch.zeros_like(x0),
+            y_sum=torch.zeros_like(y0),
+            sum_weights=scalar(0.0),
+            x_restart=x0,
+            y_restart=y0,
+            num_steps=scalar(0, torch.int32),
+            num_accepted=scalar(0, torch.int32),
+            kkt_passes=scalar(1.0),
+            step_ratio=scalar(1.0),
+        )
+
+    return warm_state
+
+
 def _make_final_iterate(norm: OptimalityNorm):
     def final_iterate(prob: DeviceProblem, x, y) -> dict:
         mv = _make_matvecs(prob.a, prob.at)
@@ -757,40 +1139,11 @@ def _invalid_result(qp: QuadraticProgram,
     )
 
 
-# Features of the JAX solver that later slices of the port bring.
-_DEFERRED = {
-    "adaptive_heuristic": (
-        "restart_strategy=ADAPTIVE_HEURISTIC needs pdlp/trust_region.py, "
-        "which a later slice of the port brings"),
-    "malitsky_pock": (
-        "linesearch_rule='malitsky_pock' is not ported yet (a later slice)"),
-    "polishing": (
-        "use_feasibility_polishing (with _make_warm_state) is not ported "
-        "yet (a later slice)"),
-    "presolve": (
-        "presolve=True needs the port's copy of glop/presolve.py, which a "
-        "later slice brings"),
-    "random_projections": (
-        "random_projection_seeds are not ported yet (a later slice)"),
-    "mesh": (
-        "multi-device solves (a mesh) come with the multi-device slice of "
-        "the port"),
-}
-
-
-def _check_deferred(params: PdhgParams, mesh) -> None:
+def _check_deferred(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError(_DEFERRED["mesh"])
-    if params.restart_strategy == RestartStrategy.ADAPTIVE_HEURISTIC:
-        raise NotImplementedError(_DEFERRED["adaptive_heuristic"])
-    if params.linesearch_rule == "malitsky_pock":
-        raise NotImplementedError(_DEFERRED["malitsky_pock"])
-    if params.use_feasibility_polishing:
-        raise NotImplementedError(_DEFERRED["polishing"])
-    if params.presolve:
-        raise NotImplementedError(_DEFERRED["presolve"])
-    if params.random_projection_seeds:
-        raise NotImplementedError(_DEFERRED["random_projections"])
+        raise NotImplementedError(
+            "multi-device solves (a mesh) come with the multi-device slice "
+            "of the port")
 
 
 def solve(
@@ -804,12 +1157,14 @@ def solve(
 
     ``device`` defaults to the card and raises where there is none;
     ``device="cpu"`` runs the same solve with the kernels' plain versions.
-    ``v0`` (length of the padded variable vector) is the power-iteration
-    start; by default it is drawn from a ``torch.Generator`` seeded with 0.
+    ``v0`` is the power-iteration start, of the length of the padded
+    variable vector of the problem the PDHG runs on (the reduced one under
+    ``presolve``); by default it is drawn from a ``torch.Generator``
+    seeded with 0.
     """
     params = params or PdhgParams()
     device = resolve_device(device)
-    _check_deferred(params, mesh)
+    _check_deferred(mesh)
     perrs = params.validate()
     if perrs:
         return _invalid_result(qp, TerminationReason.INVALID_PARAMETER)
@@ -817,18 +1172,19 @@ def solve(
     if errs:
         return _invalid_result(qp, TerminationReason.INVALID_PROBLEM)
     start = time.perf_counter()
+    if params.presolve:
+        return _solve_with_presolve(qp, params, device, v0, start)
     qp_min = qp.as_minimization()
     sign = -1.0 if qp.maximize else 1.0
 
     prob = build_device_problem(qp_min, params, device)
-    run_major = _make_run_major(params)
-    run_major_fast = _make_run_major(params, fast=True)
     compute_stats = _make_compute_stats(params)
-    compute_stats_fast = _make_compute_stats(params, exact_refresh=True)
     apply_restart = _make_apply_restart(params)
     power_iter = _make_power_iter(params)
     initial_state = _make_initial_state(params)
+    warm_state = _make_warm_state(params)
     final_iterate = _make_final_iterate(params.optimality_norm)
+    freq = params.termination_check_frequency
 
     def refresh_products(st: PdhgState) -> PdhgState:
         mv = _make_matvecs(prob.a, prob.at)
@@ -852,7 +1208,8 @@ def solve(
     if v0.shape != (nn,):
         raise ValueError(f"v0 must have length {nn}, got {tuple(v0.shape)}")
     sigma_max = power_iter(prob, v0)
-    state = initial_state(prob, sigma_max)
+    majors = _Majors(prob, params)
+    majors.load(initial_state(prob, sigma_max))
     prob_consts = dict(
         norm_b=float(prob.norm_b), norm_c=float(prob.norm_c)
     )
@@ -862,8 +1219,92 @@ def solve(
     best = None  # (which, stats_dict, x, y) chosen at termination
     kkt_at_last_restart = math.inf
     last_candidate_kkt = math.inf
+    normalized_gap_at_last_restart = math.inf
+    normalized_gap_at_last_trial = math.inf
     iters_at_last_restart = 0
     iterations = 0
+    next_polish = 16 * freq
+
+    def _zero_finite(v):
+        return torch.where(torch.isfinite(v), torch.zeros_like(v), v)
+
+    def _polish_phase(pprob, pconsts, state0, budget, require):
+        """Run exact majors on a modified problem (its vectors copied into
+        the majors' problem) until the masked criteria hold; returns
+        (x, y, iters) or None on budget/numerical failure."""
+        majors.set_problem(pprob)
+        majors.load(state0)
+        it = 0
+        kkt_last = math.inf
+        while it < budget:
+            stats_p, host_p = majors.major(False)
+            it += freq
+            curp, avgp = host_p["current"], host_p["average"]
+            kkt_c, kkt_a = host_p["kkt_current"], host_p["kkt_average"]
+            if not math.isfinite(kkt_c):
+                return None
+            if _check_optimality(curp, pconsts, params, require):
+                return majors.state.x.clone(), majors.state.y.clone(), it
+            if _check_optimality(avgp, pconsts, params, require):
+                return stats_p["x_avg"].clone(), stats_p["y_avg"].clone(), it
+            cand = min(kkt_a, kkt_c)
+            if math.isinf(kkt_last):
+                kkt_last = cand
+            elif cand <= params.sufficient_reduction_for_restart * kkt_last:
+                majors.load(apply_restart(
+                    majors.prob, majors.state, kkt_a <= kkt_c,
+                    stats_p["x_avg"], stats_p["y_avg"]))
+                kkt_last = cand
+        return None
+
+    def _try_feasibility_polishing(x_avg, y_avg, avg_stats):
+        """Reference TryFeasibilityPolishing (:2442): gate on the
+        objective gap, then primal polishing (zero objective) and dual
+        polishing (finite bounds zeroed), both warm-started; accept only
+        when the combined point passes the FULL criteria.  The main
+        state is put back in the buffers either way."""
+        if not _check_optimality(avg_stats, prob_consts, params, ("gap",)):
+            return None
+        budget = max(iterations // 8, freq)
+        saved = majors.snapshot()
+        try:
+            prob_p = prob._replace(
+                c=torch.zeros_like(prob.c), q=torch.zeros_like(prob.q),
+                orig_c=torch.zeros_like(prob.orig_c),
+                orig_q=torch.zeros_like(prob.orig_q),
+                norm_c=torch.zeros_like(prob.norm_c))
+            consts_p = dict(norm_b=prob_consts["norm_b"], norm_c=0.0)
+            st_p = warm_state(prob_p, x_avg, torch.zeros_like(saved.y),
+                              saved.step_size, saved.primal_weight)
+            rp = _polish_phase(prob_p, consts_p, st_p, budget, ("primal",))
+            if rp is None:
+                return None
+            prob_d = prob._replace(
+                con_lb=_zero_finite(prob.con_lb),
+                con_ub=_zero_finite(prob.con_ub),
+                var_lb=_zero_finite(prob.var_lb),
+                var_ub=_zero_finite(prob.var_ub),
+                orig_con_lb=_zero_finite(prob.orig_con_lb),
+                orig_con_ub=_zero_finite(prob.orig_con_ub),
+                orig_var_lb=_zero_finite(prob.orig_var_lb),
+                orig_var_ub=_zero_finite(prob.orig_var_ub),
+                norm_b=torch.zeros_like(prob.norm_b),
+            )
+            consts_d = dict(norm_b=0.0, norm_c=prob_consts["norm_c"])
+            st_d = warm_state(prob_d, torch.zeros_like(saved.x), y_avg,
+                              saved.step_size, saved.primal_weight)
+            rd = _polish_phase(prob_d, consts_d, st_d, budget, ("dual",))
+            if rd is None:
+                return None
+        finally:
+            majors.set_problem(prob)
+            majors.load(saved)
+        st_f = warm_state(prob, rp[0], rd[1], saved.step_size,
+                          saved.primal_weight)
+        curf = _stats_to_host(compute_stats(prob, st_f))["current"]
+        if _check_optimality(curf, prob_consts, params):
+            return ("polished", curf, st_f.x, st_f.y)
+        return None
 
     fast_mode = fast_ready
     fast_best_kkt = math.inf
@@ -877,15 +1318,12 @@ def solve(
             reason = TerminationReason.TIME_LIMIT
             break
         was_fast = fast_mode
-        # Fast majors keep the pre-major state (tensors no step updates in
-        # place) so a non-finite bf16 major can be REWOUND: the corrupted
-        # iterate must never leak into the exact retry.
-        state_before = state if fast_mode else None
-        state = (run_major_fast if fast_mode else run_major)(prob, state)
-        iterations += params.termination_check_frequency
-        stats = (compute_stats_fast if fast_mode else compute_stats)(
-            prob, state)
-        host = _stats_to_host(stats)
+        # A fast major keeps a copy of the pre-major state so that a
+        # non-finite bf16 major can be REWOUND: the corrupted iterate must
+        # never leak into the exact retry.
+        state_before = majors.snapshot() if fast_mode else None
+        stats, host = majors.major(fast_mode)
+        iterations += freq
         cur, avg = host["current"], host["average"]
         kkt_cur = host["kkt_current"]
         kkt_avg = host["kkt_average"]
@@ -903,19 +1341,22 @@ def solve(
                     # numerical blowup in the bf16 stream: rewind to the
                     # pre-major state and retry the major exactly
                     fast_mode = False
-                    state = refresh_products(state_before)
-                    iterations -= params.termination_check_frequency
+                    majors.load(refresh_products(state_before))
+                    iterations -= freq
                     continue
                 if fast_stall >= 3 or not math.isfinite(cand_fast):
                     fast_mode = False
-                    state = refresh_products(state)
+                    majors.load(refresh_products(majors.state))
         if params.record_iteration_stats or params.verbosity >= 2:
-            log.append(dict(iteration=iterations, current=cur, average=avg,
-                            kkt_current=kkt_cur, kkt_average=kkt_avg,
-                            step_size=host["step_size"],
-                            primal_weight=host["primal_weight"],
-                            kkt_passes=kkt_passes,
-                            stream="fast" if was_fast else "exact"))
+            rec = dict(iteration=iterations, current=cur, average=avg,
+                       kkt_current=kkt_cur, kkt_average=kkt_avg,
+                       step_size=host["step_size"],
+                       primal_weight=host["primal_weight"],
+                       kkt_passes=kkt_passes,
+                       stream="fast" if was_fast else "exact")
+            if host["projections"]:
+                rec["point_metadata"] = dict(host["projections"])
+            log.append(rec)
         if params.verbosity >= 2:
             print(
                 f"iter={iterations} kkt_cur={kkt_cur:.3e} kkt_avg={kkt_avg:.3e}"
@@ -926,20 +1367,35 @@ def solve(
             )
         if not math.isfinite(kkt_cur):
             reason = TerminationReason.NUMERICAL_ERROR
-            best = ("average", avg, stats["x_avg"], stats["y_avg"])
+            best = ("average", avg, stats["x_avg"].clone(),
+                    stats["y_avg"].clone())
             break
         # Termination: check both current and average.
         if _check_optimality(cur, prob_consts, params):
             reason = TerminationReason.OPTIMAL
-            best = ("current", cur, state.x, state.y)
+            best = ("current", cur, majors.state.x.clone(),
+                    majors.state.y.clone())
             break
         if _check_optimality(avg, prob_consts, params):
             reason = TerminationReason.OPTIMAL
-            best = ("average", avg, stats["x_avg"], stats["y_avg"])
+            best = ("average", avg, stats["x_avg"].clone(),
+                    stats["y_avg"].clone())
             break
         if kkt_passes >= params.kkt_matrix_pass_limit:
             reason = TerminationReason.KKT_MATRIX_PASS_LIMIT
             break
+
+        if (params.use_feasibility_polishing
+                and iterations >= next_polish):
+            x_avg, y_avg = stats["x_avg"].clone(), stats["y_avg"].clone()
+            polished = _try_feasibility_polishing(x_avg, y_avg, avg)
+            next_polish *= 2
+            if polished is not None:
+                reason = TerminationReason.OPTIMAL
+                best = polished
+                break
+            # the polishing majors overwrote the statistics' buffers
+            stats = dict(stats, x_avg=x_avg, y_avg=y_avg)
 
         # Infeasibility certificates from candidate rays (reference
         # termination.h:74 kIterateTermination infeasibility branch).
@@ -963,16 +1419,41 @@ def solve(
                 break
         if infeas_reason is not None:
             reason = infeas_reason
-            best = ("current", cur, state.x, state.y)
+            best = ("current", cur, majors.state.x.clone(),
+                    majors.state.y.clone())
             break
 
         # Restart decision (host scalars only).
         do_restart = False
         use_avg = kkt_avg <= kkt_cur
         cand_kkt = min(kkt_avg, kkt_cur)
+        cand_norm_gap = None
         strat = params.restart_strategy
         if strat == RestartStrategy.EVERY_MAJOR_ITERATION:
             do_restart = True
+        elif strat == RestartStrategy.ADAPTIVE_HEURISTIC:
+            # Reference ChooseRestartToApply
+            # (primal_dual_hybrid_gradient.cc:1904): candidates compared
+            # by gap/radius^2; restart on sufficient reduction of
+            # gap/radius vs the last restart, on necessary reduction with
+            # the gap worsening since the last trial, or (forced) when
+            # the averaging window spans half the iterations so far.
+            tr_cur, tr_avg = host["tr_current"], host["tr_average"]
+            use_avg = tr_avg["potential"] < tr_cur["potential"]
+            cand = tr_avg if use_avg else tr_cur
+            cand_norm_gap = cand["normalized_gap"]
+            restart_len = iterations - iters_at_last_restart
+            if restart_len >= iterations / 2:
+                do_restart = True
+            elif math.isfinite(normalized_gap_at_last_restart):
+                ratio = cand_norm_gap / max(
+                    normalized_gap_at_last_restart, 1e-300
+                )
+                if ratio < params.sufficient_reduction_for_restart:
+                    do_restart = True
+                elif (ratio < params.necessary_reduction_for_restart
+                      and cand_norm_gap > normalized_gap_at_last_trial):
+                    do_restart = True
         elif strat == RestartStrategy.ADAPTIVE_KKT:
             if math.isinf(kkt_at_last_restart):
                 kkt_at_last_restart = cand_kkt
@@ -990,25 +1471,35 @@ def solve(
                 do_restart = suff or nec or long_interval
         last_candidate_kkt = cand_kkt
         if do_restart:
-            state = apply_restart(prob, state, use_avg,
-                                  stats["x_avg"], stats["y_avg"])
+            majors.load(apply_restart(prob, majors.state, use_avg,
+                                      stats["x_avg"], stats["y_avg"]))
             kkt_at_last_restart = cand_kkt
             last_candidate_kkt = math.inf
             iters_at_last_restart = iterations
+            if cand_norm_gap is not None:
+                # reference re-evaluates at the new start point with the
+                # new primal weight; the candidate's value is the same
+                # quantity up to the weight update
+                normalized_gap_at_last_restart = cand_norm_gap
+                normalized_gap_at_last_trial = math.inf
             if params.verbosity >= 2:
                 print(f"  restart(to_{'avg' if use_avg else 'cur'}) "
-                      f"w={float(state.primal_weight):.3e}")
+                      f"w={float(majors.state.primal_weight):.3e}")
+        elif cand_norm_gap is not None:
+            if not math.isfinite(normalized_gap_at_last_restart):
+                normalized_gap_at_last_restart = cand_norm_gap
+            else:
+                normalized_gap_at_last_trial = cand_norm_gap
 
     if best is None:
         # Terminated by a limit: report the better of current/average.
-        stats = (compute_stats_fast if fast_mode else compute_stats)(
-            prob, state)
-        host = _stats_to_host(stats)
+        stats, host = majors.stats(fast_mode)
         if host["kkt_average"] < host["kkt_current"]:
-            best = ("average", host["average"], stats["x_avg"],
-                    stats["y_avg"])
+            best = ("average", host["average"], stats["x_avg"].clone(),
+                    stats["y_avg"].clone())
         else:
-            best = ("current", host["current"], state.x, state.y)
+            best = ("current", host["current"], majors.state.x.clone(),
+                    majors.state.y.clone())
 
     which, bstats, x_dev, y_dev = best
     # Unscale and unpad; recompute reduced costs for the reported iterate.
@@ -1037,7 +1528,62 @@ def solve(
         dual_residual=bstats["dual_residual"],
         relative_gap=rel_gap,
         iterations=iterations,
-        kkt_matrix_passes=float(state.kkt_passes),
+        kkt_matrix_passes=float(majors.state.kkt_passes),
         solve_time_sec=time.perf_counter() - start,
         iteration_stats=log,
+    )
+
+
+def _solve_with_presolve(qp: QuadraticProgram, params: PdhgParams, device,
+                         v0, start: float) -> SolveResult:
+    """Presolve -> solve reduced -> postsolve (reference
+    PreprocessSolver::PreprocessAndSolve with glop presolve, :1145)."""
+    from ortools_tpu_torch.glop.presolve import PresolveStatus, presolve
+
+    qp_min = qp.as_minimization()
+    sign = -1.0 if qp.maximize else 1.0
+    pres = presolve(qp_min)
+    if pres.status in (PresolveStatus.PRIMAL_INFEASIBLE,
+                       PresolveStatus.DUAL_INFEASIBLE):
+        res = _invalid_result(qp, TerminationReason[pres.status.name])
+        res.solve_time_sec = time.perf_counter() - start
+        return res
+    sub_params = dataclasses.replace(params, presolve=False)
+    reduced = pres.reduced
+    if reduced.num_variables == 0:
+        x = pres.postsolve(np.zeros(0))
+        y, rc = pres.postsolve_duals(qp_min, x, np.zeros(0))
+        obj = sign * qp_min.objective_value(x)
+        return SolveResult(
+            termination_reason=TerminationReason.OPTIMAL,
+            primal_solution=x, dual_solution=sign * y,
+            reduced_costs=sign * rc,
+            primal_objective=obj, dual_objective=obj,
+            primal_residual=0.0, dual_residual=0.0, relative_gap=0.0,
+            iterations=0, kkt_matrix_passes=0.0,
+            solve_time_sec=time.perf_counter() - start,
+            iteration_stats=[],
+        )
+    sub = solve(reduced, sub_params, device=device, v0=v0)
+    if sub.termination_reason not in (
+        TerminationReason.OPTIMAL,
+        TerminationReason.ITERATION_LIMIT,
+        TerminationReason.TIME_LIMIT,
+        TerminationReason.KKT_MATRIX_PASS_LIMIT,
+    ):
+        # infeasibility of the reduced problem implies the original's
+        res = _invalid_result(qp, sub.termination_reason)
+        res.solve_time_sec = time.perf_counter() - start
+        return res
+    x = pres.postsolve(sub.primal_solution)
+    y, rc = pres.postsolve_duals(qp_min, x, sub.dual_solution)
+    return dataclasses.replace(
+        sub,
+        primal_solution=x,
+        dual_solution=sign * y,
+        reduced_costs=sign * rc,
+        # sub solved the min-sense reduced problem; report original sense
+        primal_objective=sign * sub.primal_objective,
+        dual_objective=sign * sub.dual_objective,
+        solve_time_sec=time.perf_counter() - start,
     )

@@ -139,3 +139,194 @@ def test_misaligned_input_raises_on_card(cuda):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(mat.tiled, x)
         assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Majors as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _moderate_start(cuda, step_scale=1.0, **kw):
+    """The 2048^2 block LP (f32, 8x128 blocks, with the bf16 copy) on the
+    card and its initial state; ``step_scale`` enlarges the first step so
+    that attempts are rejected."""
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams
+    from ortools_tpu_torch.pdlp import solver as S
+
+    params = PdhgParams(block_shape=(8, 128), **kw)
+    qp = block_random_lp(2048, 2048, 512, (8, 128), seed=0)
+    prob = S.build_device_problem(qp, params, cuda)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    v0 = torch.randn(prob.c.shape[0], generator=g,
+                     dtype=torch.float64).to(prob.c)
+    state = S._make_initial_state(params)(
+        prob, S._make_power_iter(params)(prob, v0))
+    return S, params, prob, state._replace(
+        step_size=state.step_size * step_scale)
+
+
+def _run_majors(S, params, prob, state, graphs, streams):
+    majors = S._Majors(prob, params)
+    majors.use_graphs = graphs  # False: the same slots, run eagerly
+    majors.load(state)
+    hosts = []
+    S.host_syncs = 0
+    for fast in streams:  # capture (graphs) or warm-up, then counted
+        majors.major(fast)
+    before = T.launch_counts()
+    for fast in streams:
+        hosts.append(majors.major(fast)[1])
+    torch.cuda.synchronize()
+    launches = tuple(a - b for a, b in zip(T.launch_counts(), before))
+    return majors.snapshot(), hosts, launches, S.host_syncs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adaptive", "malitsky_pock"])
+@pytest.mark.parametrize("step_scale", [1.0, 30.0])
+def test_graph_majors_equal_eager_slots_on_card(cuda, rule, step_scale):
+    """A replayed major is the eagerly run slot sequence bit for bit, in
+    both streams, with and without rejected attempts; each replay adds the
+    launches it captured to the counters."""
+    S, params, prob, state = _moderate_start(cuda, step_scale,
+                                             linesearch_rule=rule)
+    streams = (True, False)
+    g_state, g_hosts, g_launches, g_syncs = _run_majors(
+        S, params, prob, state, True, streams)
+    e_state, e_hosts, e_launches, _ = _run_majors(
+        S, params, prob, state, False, streams)
+    for name, a, b in zip(S.PdhgState._fields, g_state, e_state):
+        assert torch.equal(a, b), name
+    assert g_hosts == e_hosts
+    assert g_launches == e_launches and min(g_launches) > 0
+    if step_scale > 1.0:
+        assert int(g_state.num_steps) > int(g_state.num_accepted)
+    # four majors: one read each, and one more per round of tail slots
+    assert 4 <= g_syncs <= 8
+
+
+@pytest.mark.gpu
+def test_solve_on_card_reads_the_host_at_most_twice_a_major(cuda):
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.pdlp import solver as S
+    from ortools_tpu_torch.utils.status import TerminationReason
+
+    S.host_syncs = 0
+    r = solve(block_random_lp(2048, 2048, 512, (8, 128), seed=1),
+              PdhgParams(block_shape=(8, 128), record_iteration_stats=True))
+    assert r.termination_reason == TerminationReason.OPTIMAL
+    majors = len(r.iteration_stats)
+    assert S.host_syncs <= 2 * majors
+    assert S.capture_seconds > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(restart_strategy="ADAPTIVE_HEURISTIC"),
+    dict(linesearch_rule="malitsky_pock"),
+    dict(use_feasibility_polishing=True),
+    dict(presolve=True),
+    dict(random_projection_seeds=(3,)),
+], ids=["adaptive_heuristic", "malitsky_pock", "polishing", "presolve",
+        "projections"])
+def test_rest_of_the_solve_on_card(cuda, kw):
+    """Each feature of this slice through ``solve`` on the card, OPTIMAL
+    against HiGHS."""
+    from scipy.optimize import linprog
+
+    from ortools_tpu_torch.models.lp import random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.pdlp.params import RestartStrategy
+    from ortools_tpu_torch.utils.status import TerminationReason
+
+    if "restart_strategy" in kw:
+        kw = dict(restart_strategy=RestartStrategy[kw["restart_strategy"]])
+    qp = random_lp(256, 256, density=0.5, seed=11)
+    ref = linprog(qp.objective_vector, A_ub=qp.constraint_matrix,
+                  b_ub=qp.constraint_upper,
+                  bounds=list(zip(qp.variable_lower, qp.variable_upper)),
+                  method="highs")
+    r = solve(qp, PdhgParams(block_shape=(8, 128), iteration_limit=40000,
+                             record_iteration_stats=True, **kw))
+    assert r.termination_reason == TerminationReason.OPTIMAL
+    assert abs(r.primal_objective - ref.fun) <= 1e-4 * (1 + abs(ref.fun))
+    if "random_projection_seeds" in kw:
+        assert set(r.iteration_stats[-1]["point_metadata"]) == {
+            "primal_3", "dual_3"}
+
+
+@pytest.mark.gpu
+def test_polishing_on_card_runs_on_the_majors_buffers(cuda):
+    """Polishing's majors run on the solve's own graphs, with the
+    subproblem's vectors copied in.  On this LP the gate opens before the
+    solve ends: a polished point ends it sooner, or the solve goes on from
+    the state it had, bit for bit."""
+    import dataclasses
+
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.pdlp import solver as S
+    from ortools_tpu_torch.utils.status import TerminationReason
+
+    qp = block_random_lp(2048, 2048, 512, (8, 128), seed=3)
+    params = PdhgParams(use_feasibility_polishing=True,
+                        record_iteration_stats=True)
+    S.host_syncs = 0
+    r = solve(qp, params)
+    # one read per major of the main loop; the rest are polishing's
+    assert S.host_syncs > len(r.iteration_stats)
+    S.host_syncs = 0
+    plain = solve(qp, dataclasses.replace(params,
+                                          use_feasibility_polishing=False))
+    assert S.host_syncs == len(plain.iteration_stats)
+    assert r.termination_reason == plain.termination_reason == \
+        TerminationReason.OPTIMAL
+    if r.iterations == plain.iterations:
+        np.testing.assert_array_equal(r.primal_solution,
+                                      plain.primal_solution)
+        np.testing.assert_array_equal(r.dual_solution, plain.dual_solution)
+    else:
+        assert r.iterations < plain.iterations
+        assert abs(r.primal_objective - plain.primal_objective) <= 1e-4 * (
+            1 + abs(plain.primal_objective))
+
+
+@pytest.mark.gpu
+def test_repeated_solves_hold_no_more_device_memory(cuda):
+    """Every solve captures its graphs on the card's one capture stream,
+    so a later solve leaves no more memory held than the first (cuBLAS
+    keeps a workspace for each stream it has run on)."""
+    from ortools_tpu_torch.models.lp import random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+
+    qp = random_lp(256, 256, density=0.5, seed=11)
+    params = PdhgParams(block_shape=(8, 128), iteration_limit=640)
+    solve(qp, params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for _ in range(3):
+        solve(qp, params)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_on_card(cuda, monkeypatch):
+    """A slot that reads a device value cannot be captured: the majors
+    raise and do not fall back to running slots eagerly.  (Last in the
+    file: a failed capture may leave the card's state unusable for what
+    follows in the process.)"""
+    S, params, prob, state = _moderate_start(cuda)
+    slot = S._make_iteration(params)
+
+    def reading_slot(p, s):
+        slot(p, s)
+        float(s.state.step_size)
+
+    monkeypatch.setattr(S, "_make_iteration", lambda *a, **k: reading_slot)
+    majors = S._Majors(prob, params)
+    majors.load(state)
+    with pytest.raises(RuntimeError):
+        majors.major(False)
