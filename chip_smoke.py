@@ -38,8 +38,20 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    feasibility polishing and presolve (one solve each), and the bench LP
    at full width under ADAPTIVE_HEURISTIC with Malitsky-Pock for 8 majors,
    each with the launch counters set to 0 just before and read just after.
-7. The ``kernels`` line (JSON), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+7. The batched solve: the SpMM kernel against its plain version (bench A
+   and A^T at B = 64, the other block shapes and their transposes at B =
+   8, f32 and f64, each twice and bit-identical); ``solve_batch`` on 8
+   instances of moderate LP seed 3, each with its own bounds, to OPTIMAL
+   against HiGHS in f32 and f64; tests/test_mip.py's infeasible/feasible
+   pair; and the batched main path at full width: ``PdhgNodeBackend`` on
+   the bench LP at B = 64 (root bounds tiled, 8 majors), with the launch
+   counters set to 0 just before its first call and read just after, then
+   a second call that must capture nothing; aggregate LP-iterations/s, host
+   syncs per major, capture seconds, peak memory, kernels per iteration and
+   the busy share of a batched major, and the SpMM's time at B = 64 beside
+   its bound, its plain version and cuSPARSE SpMM (L2-cold).
+8. The ``kernels`` line (JSON), the total time, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,11 +70,14 @@ import torch
 from scipy.optimize import linprog
 
 import ortools_tpu_torch
+from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.generators import block_random_lp
+from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
+from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.pdlp.params import RestartStrategy
 from ortools_tpu_torch.utils.status import TerminationReason
 
@@ -93,6 +108,16 @@ KERNELS = {
         wrapper=tiled_spmv.tiled_matvec_fast,
         plain=tiled_spmv.tiled_matvec_fast_plain),
 }
+# The batched path's product: device code that the JAX package leaves to
+# XLA (block_sparse.py::_block_matmat), a hand kernel in the port.
+SPMM = dict(
+    name="block_spmm_exact", route="cuda",
+    source="ortools_tpu_torch/ops/csrc/block_spmm.cu",
+    replaces="ortools_tpu/ops/block_sparse.py:284",
+    wrapper=tiled_spmv.tiled_matmat, plain=tiled_spmv.tiled_matmat_plain)
+BATCH = 64  # bench.py's batched configuration (bench.py:255-293)
+BATCH_MAJORS = 8
+MODERATE_BATCH = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -109,7 +134,7 @@ def phase(title: str) -> None:
 
 
 def reset_counters() -> None:
-    for k in KERNELS.values():
+    for k in list(KERNELS.values()) + [SPMM]:
         k["wrapper"].launches = 0
 
 
@@ -399,14 +424,41 @@ def stream_rates(prob) -> tuple:
               f"host syncs per major {syncs / n_majors:.2f}, host blocked in"
               f" them {blocked / dt:.1%} of the major's wall time")
         major_s[name] = dt / n_majors
+    host_parts(majors, False, "exact stream major")
     return major_s, majors
+
+
+def host_parts(majors, fast: bool, label: str) -> None:
+    """The host's time in a major, part by part (the steps of
+    ``_Majors.major`` when no instance falls short), over TIMED_MAJORS
+    majors: the two replays, the read of the scalars (the wait for the
+    device included), and the rest."""
+    parts = np.zeros(3)
+    t_start = time.perf_counter()
+    for _ in range(TIMED_MAJORS):
+        t0 = time.perf_counter()
+        majors._run("main", fast)
+        t1 = time.perf_counter()
+        _, scalars = majors._run("stats", fast)
+        t2 = time.perf_counter()
+        pdlp_solver._read_scalars(*scalars)
+        parts += (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_start) / TIMED_MAJORS
+    parts /= TIMED_MAJORS
+    print(f"{label} on the host, ms per major: replay of the major graph "
+          f"{parts[0] * 1e3:.3f}, of the statistics graph "
+          f"{parts[1] * 1e3:.3f}, read of the scalars (the wait included) "
+          f"{parts[2] * 1e3:.3f}, the rest {(wall - parts.sum()) * 1e3:.3f};"
+          f" wall {wall * 1e3:.3f}")
 
 
 def _graph(majors, kind: str, fast: bool):
     return majors._graphs[(kind, fast)][0]
 
 
-def device_profile(majors, major_s: dict) -> None:
+def device_profile(majors, major_s: dict,
+                   streams=(("fast", True), ("exact", False))) -> None:
     """Each stream's major graph and statistics graph under
     torch.profiler: device kernels per iteration and device time by
     kernel; then the device time of a major (the two graphs replayed back
@@ -417,7 +469,7 @@ def device_profile(majors, major_s: dict) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     freq = majors.freq
-    for name, fast in (("fast", True), ("exact", False)):
+    for name, fast in streams:
         seen = {}
         for kind in ("main", "stats"):
             with profile(activities=[ProfilerActivity.CPU,
@@ -748,6 +800,289 @@ def rest_of_solve(bench_qp, seed: int = REST_SEED) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 7. The batched solve
+# ---------------------------------------------------------------------------
+
+
+def _batch_x(mat: BlockSparseMatrix, batch: int, dtype, seed: int):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(batch, mat.padded_shape[1], generator=g,
+                    dtype=torch.float64)
+    return x.to(dtype=dtype, device="cuda")
+
+
+def check_spmm(label: str, mat: BlockSparseMatrix, batch: int,
+               errs: dict) -> None:
+    """The SpMM kernel against its plain version on ``mat`` (no layout)
+    at ``batch`` instances, f32 and f64, each launched twice."""
+    out = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        lay = dataclasses.replace(mat, data=mat.data.to(dtype),
+                                  tiled=None).with_tiled().tiled
+        x = _batch_x(mat, batch, dtype, 1)
+        y, y2 = tiled_spmv.tiled_matmat(lay, x), tiled_spmv.tiled_matmat(lay,
+                                                                         x)
+        ref = tiled_spmv.tiled_matmat_plain(lay, x)
+        torch.cuda.synchronize()
+        err, scale = _rel_err(y, ref)
+        out.append(f"{str(dtype)[6:]} {err:.3e} (<= {tol * scale:.3e})")
+        require(err <= tol * scale, f"{label}: SpMM {dtype} disagrees")
+        require(torch.equal(y, y2),
+                f"{label}: a repeated SpMM launch is not bit-identical")
+        if dtype == torch.float32:
+            errs[SPMM["name"]] = max(errs.get(SPMM["name"], 0.0), err)
+    print(f"{label:34s} B={batch:3d}: SpMM " + ", ".join(out))
+
+
+def spmm_against_plain(bench_prob) -> dict:
+    errs: dict = {}
+    for name, mat in (("A", bench_prob.a), ("A^T", bench_prob.at)):
+        bm, bn = mat.block_shape
+        check_spmm(f"bench {name} ({bm}x{bn})", mat.without_tiled(), BATCH,
+                   errs)
+    for block_shape, nb in SMALL_SHAPES:
+        qp = block_random_lp(2048, 2048, nb, block_shape, seed=1)
+        mat = BlockSparseMatrix.from_scipy(
+            qp.constraint_matrix, block_shape=block_shape,
+            dtype=torch.float64, device="cuda")
+        bm, bn = block_shape
+        check_spmm(f"2048^2 A ({bm}x{bn})", mat, 8, errs)
+        check_spmm(f"2048^2 A^T ({bn}x{bm})", mat.block_transpose(), 8, errs)
+    skewed = skewed_matrix()
+    check_spmm("skewed 2048x16384 (8x128)", skewed, 8, errs)
+    check_spmm("skewed^T (128x8)", skewed.block_transpose(), 8, errs)
+    empty = BlockSparseMatrix.from_scipy(sp.csr_matrix((50, 60)),
+                                         device="cuda")
+    check_spmm("empty 50x60 (8x128)", empty, 8, errs)
+    return errs
+
+
+def moderate_instances(seed: int = REST_SEED, batch: int = MODERATE_BATCH):
+    """The moderate LP and ``batch`` sets of its variable bounds: in each
+    instance a fifth of the variables boxed to within 1 of the generator's
+    feasible point, so every instance stays feasible; drawn from a seed."""
+    qp = block_random_lp(**MODERATE, seed=seed)
+    bm, bn = MODERATE["block_shape"]
+    m, n, nb = MODERATE["m"], MODERATE["n"], MODERATE["num_blocks"]
+    # block_random_lp's draws: cells, values, then its feasible point x0
+    g = np.random.default_rng(seed)
+    g.choice((m // bm) * (n // bn), size=nb, replace=False)
+    g.standard_normal(nb * bm * bn)
+    x0 = g.uniform(0.0, 5.0, size=n)
+    require(bool(np.all(qp.constraint_matrix @ x0 <= qp.constraint_upper)),
+            "the generator's feasible point is not feasible")
+    rng = np.random.default_rng(seed + 100)
+    box = rng.random((batch, n)) < 0.2
+    lbs = np.where(box, np.maximum(0.0, x0 - rng.uniform(0, 1, box.shape)),
+                   qp.variable_lower)
+    ubs = np.where(box, np.minimum(10.0, x0 + rng.uniform(0, 1, box.shape)),
+                   qp.variable_upper)
+    return qp, lbs, ubs
+
+
+def highs_bounded(qp, lb, ub) -> float:
+    res = linprog(qp.objective_vector, A_ub=qp.constraint_matrix,
+                  b_ub=qp.constraint_upper, bounds=list(zip(lb, ub)),
+                  method="highs")
+    require(res.status == 0, f"HiGHS failed: {res.message}")
+    return float(res.fun)
+
+
+def batched_moderate() -> None:
+    """``solve_batch`` on the moderate instances, f32 then f64: every
+    instance OPTIMAL within 1e-4(1+|ref|) of HiGHS on its own bounds, its
+    dual bound at most HiGHS + 1e-4(1+|ref|)."""
+    qp, lbs, ubs = moderate_instances()
+    refs = np.array([highs_bounded(qp, lbs[i], ubs[i])
+                     for i in range(len(lbs))])
+    for dtype in (torch.float32, torch.float64):
+        reset_counters()
+        t0 = time.perf_counter()
+        r = solve_batch(qp, lbs, ubs, PdhgParams(dtype=dtype))
+        dt = time.perf_counter() - t0
+        rel = np.abs(r.primal_objective - refs) / (1 + np.abs(refs))
+        slack = r.dual_bound - refs - 1e-4 * (1 + np.abs(refs))
+        print(f"solve_batch, moderate LP seed {REST_SEED}, {len(lbs)} "
+              f"instances, {str(dtype)[6:]}: optimal {int(r.optimal.sum())}"
+              f"/{len(lbs)} in {r.iterations} iterations, {dt:.3f} s; "
+              f"largest objective rel. error {rel.max():.2e}; largest "
+              f"dual bound - HiGHS {np.max(r.dual_bound - refs):.2e}; SpMM "
+              f"launches {tiled_spmv.tiled_matmat.launches}", flush=True)
+        require(bool(r.optimal.all()), "a batched instance is not OPTIMAL")
+        require(bool(np.all(rel <= 1e-4)),
+                "a batched objective disagrees with HiGHS")
+        require(bool(np.all(slack <= 0)),
+                "a batched dual bound lies above HiGHS's optimum")
+        require(tiled_spmv.tiled_matmat.launches > 0,
+                "the batched solve launched no SpMM")
+
+
+def mip_pair() -> None:
+    """tests/test_mip.py:183 on the card: x1 + x2 >= 4 with x in [0,1]^2
+    (certified infeasible) and in [0,5]^2 (optimum 4)."""
+    qp = QuadraticProgram(
+        objective_vector=np.array([1.0, 1.0]),
+        constraint_matrix=sp.csr_matrix(np.array([[1.0, 1.0]])),
+        constraint_lower=np.array([4.0]),
+        constraint_upper=np.array([np.inf]),
+        variable_lower=np.zeros(2),
+        variable_upper=np.ones(2),
+    )
+    res = solve_batch(qp, np.zeros((2, 2)), np.array([[1.0, 1.0],
+                                                      [5.0, 5.0]]),
+                      PdhgParams(iteration_limit=20_000))
+    print(f"test_mip pair: primal_infeasible {res.primal_infeasible.tolist()}"
+          f", optimal {res.optimal.tolist()}, objective "
+          f"{res.primal_objective[1]!r}, dual bound {res.dual_bound[1]!r}, "
+          f"{res.iterations} iterations")
+    require(bool(res.primal_infeasible[0]) and not res.primal_infeasible[1]
+            and bool(res.optimal[1]), "test_mip pair: wrong flags")
+    require(abs(res.primal_objective[1] - 4.0) <= 1e-4
+            and res.dual_bound[1] <= 4.0 + 1e-4,
+            "test_mip pair: wrong objective or dual bound")
+
+
+def _accepted(backend) -> int:
+    """Iterations every instance of the backend's last call accepted."""
+    return int(backend._solver.majors.state.num_accepted.min())
+
+
+def batched_main_path(bench_qp) -> tuple:
+    """The batched main path at full width: ``PdhgNodeBackend`` on the
+    bench LP at B = 64, root bounds tiled, ``BATCH_MAJORS`` majors; the
+    launch counters are zeroed just before the first call and read just
+    after.  A second call must capture nothing; it is timed.  Returns the
+    launches and the backend."""
+    params = PdhgParams(iteration_limit=64 * BATCH_MAJORS, **BENCH_PARAMS)
+    lbs = np.tile(bench_qp.variable_lower, (BATCH, 1))
+    ubs = np.tile(bench_qp.variable_upper, (BATCH, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    pdlp_solver.capture_seconds = 0.0
+    pdlp_solver.host_syncs = 0
+    reset_counters()
+    t0 = time.perf_counter()
+    backend = PdhgNodeBackend(bench_qp, params, BATCH)
+    first = backend.solve(lbs, ubs)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    iters_first = _accepted(backend)
+    launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+    launches[SPMM["name"]] = SPMM["wrapper"].launches
+    peak = torch.cuda.max_memory_allocated()
+    capture_first = pdlp_solver.capture_seconds
+    syncs_first = pdlp_solver.host_syncs
+    print(f"batched bench LP, B={BATCH}, {iters_first} iterations: "
+          f"first call {t_first:.3f} s (set-up, capture and "
+          f"{BATCH_MAJORS} majors), capture {capture_first:.3f} s, host "
+          f"syncs {syncs_first}; launches {launches}; max_memory_allocated "
+          f"{peak} bytes ({held} held before)", flush=True)
+    pdlp_solver.capture_seconds = 0.0
+    pdlp_solver.host_syncs = 0
+    t0 = time.perf_counter()
+    second = backend.solve(lbs, ubs)
+    torch.cuda.synchronize()
+    t_second = time.perf_counter() - t0
+    iters_second = _accepted(backend)
+    print(f"batched bench LP, second call: {t_second:.3f} s, capture "
+          f"{pdlp_solver.capture_seconds:.3f} s, host syncs "
+          f"{pdlp_solver.host_syncs} for {BATCH_MAJORS} majors; "
+          f"{iters_second * BATCH / t_second:.1f} LP-iterations/s over "
+          f"the whole call", flush=True)
+    require(pdlp_solver.capture_seconds == 0.0,
+            "the backend's second call captured graphs")
+    for r, iters in ((first, iters_first), (second, iters_second)):
+        require(iters == 64 * BATCH_MAJORS
+                and r.primal_solution.shape == (BATCH,
+                                                bench_qp.num_variables)
+                and r.dual_solution.shape == (BATCH,
+                                              bench_qp.num_constraints),
+                "batched bench solve: wrong iterations or shapes")
+        require(bool(np.all(np.isfinite(r.primal_solution))
+                     and np.all(np.isfinite(r.dual_solution))
+                     and np.all(np.isfinite(r.dual_bound))),
+                "batched bench solve: not finite")
+    require(np.array_equal(first.primal_solution, second.primal_solution),
+            "the backend's second call differs from its first")
+    # every instance has the root's bounds: the same solve B times
+    require(bool(np.all(first.primal_solution == first.primal_solution[0])),
+            "identical instances gave different iterates")
+    require(launches[SPMM["name"]] > 0
+            and launches["block_spmv_exact"] > 0,
+            f"a kernel of the batched path was not launched: {launches}")
+    return launches, backend
+
+
+def batched_rates(backend) -> None:
+    """The backend's majors (its captured graphs) timed over
+    ``TIMED_MAJORS`` majors twice: aggregate LP-iterations/s, host syncs
+    per major and the host's blocked share; then the device profile of a
+    batched major: kernels per iteration, device time, busy share."""
+    majors = backend._solver.majors
+    freq = majors.freq
+    total = [0.0, 0, 0.0]
+    for _ in range(2):
+        syncs0 = pdlp_solver.host_syncs
+        blocked0 = pdlp_solver.host_sync_seconds
+        t0 = time.perf_counter()
+        for _ in range(TIMED_MAJORS):
+            majors.major(False)
+        torch.cuda.synchronize()
+        total[0] += time.perf_counter() - t0
+        total[1] += pdlp_solver.host_syncs - syncs0
+        total[2] += pdlp_solver.host_sync_seconds - blocked0
+    n_majors = 2 * TIMED_MAJORS
+    major_s = total[0] / n_majors
+    print(f"batched majors, B={BATCH}: {freq * BATCH / major_s:.1f} "
+          f"LP-iterations/s in aggregate ({freq / major_s:.1f} iter/s per "
+          f"instance, {major_s * 1e3:.3f} ms per {freq}-step major); host "
+          f"syncs per major {total[1] / n_majors:.2f}, host blocked in them "
+          f"{total[2] / total[0]:.1%} of the major's wall time")
+    host_parts(majors, False, f"batched major, B={BATCH}")
+    device_profile(majors, {"exact": major_s}, streams=(("exact", False),))
+
+
+def spmm_times(prob) -> dict:
+    """The SpMM at the bench shape and B = 64, A and A^T, L2-cold: its
+    time, its plain version's, cuSPARSE SpMM's (a torch sparse CSR matrix
+    times a dense [N, B] matrix) and its bound."""
+    out = {}
+    for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+        lays = _cold_copies(mat.tiled)
+        x = _batch_x(mat, BATCH, torch.float32, 2)
+        xt = x.t().contiguous()
+        csrs = _csr_copies(mat, len(lays))
+        args = [(t, x) for t in lays]
+        ms = time_launches(SPMM["wrapper"], args, 200)
+        warm_ms = time_launches(SPMM["wrapper"], args[:1], 200)
+        plain_ms = time_launches(SPMM["plain"], args, 20)
+        library_ms = time_launches(lambda a, v: a @ v,
+                                   [(c, xt) for c in csrs], 100)
+        lay = mat.tiled
+        nb, (bm, bn) = mat.num_blocks, mat.block_shape
+        m, n = mat.padded_shape
+        nbytes = (nb * bm * bn * 4 + (n + m) * BATCH * 4
+                  + (lay.num_block_rows + 1) * 4 + nb * 4)
+        flops = 2 * nb * bm * bn * BATCH
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{SPMM['name']} {orient:3s} {mat.block_shape} B={BATCH}: "
+              f"kernel {ms:.4f} ms (L2-warm {warm_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, cuSPARSE SpMM (CSR @ dense) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} "
+              f"bytes: {t_bytes * 1e3:.4f} ms; {flops} flops: "
+              f"{t_ops * 1e3:.4f} ms; {bound_by}); kernel at "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        out[orient] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        del lays, csrs
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -767,7 +1102,8 @@ def main() -> int:
     phase("2. build the kernels (nvcc -Xptxas -v)")
     t0 = time.perf_counter()
     report = _build.build()
-    _build.library()
+    for name in _build.SOURCES:
+        _build.library(name)
     print(report.strip())
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
 
@@ -800,7 +1136,22 @@ def main() -> int:
           "polishing, presolve")
     rest_of_solve(bench_qp)
 
-    phase("7. kernels")
+    phase("7. the batched solve: SpMM kernel, solve_batch, PdhgNodeBackend")
+    bench_prob = pdlp_solver.build_device_problem(
+        bench_qp, dataclasses.replace(bench_params, stream_precision="exact"),
+        "cuda")
+    errs.update(spmm_against_plain(bench_prob))
+    batched_moderate()
+    mip_pair()
+    del bench_prob
+    torch.cuda.empty_cache()
+    batch_launches, backend = batched_main_path(bench_qp)
+    batched_rates(backend)
+    spmm = spmm_times(backend._solver.prob)
+    del backend
+    torch.cuda.empty_cache()
+
+    phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
         a, at = times[(name, "A")], times[(name, "A^T")]
@@ -811,6 +1162,14 @@ def main() -> int:
             bound_ms=a["bound_ms"], bound_by=a["bound_by"],
             library_ms=a["library_ms"], warm_ms=a["warm_ms"],
             bsr_ms=a["bsr_ms"], transpose=at, ok=True))
+    a = spmm["A"]
+    kernels.append(dict(
+        name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
+        replaces=SPMM["replaces"], launches=batch_launches[SPMM["name"]],
+        max_abs_err=errs[SPMM["name"]], ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+        library_ms=a["library_ms"], warm_ms=a["warm_ms"], batch=BATCH,
+        transpose=spmm["A^T"], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -6,8 +6,10 @@ beside ``ortools_tpu.pdlp.solver``).  It imports torch, numpy and scipy
 only.  Entry points take a ``device`` argument that defaults to ``"cuda"``;
 they raise when no card is present unless the caller asks for the CPU.
 
-Ported so far: the single-device PDLP solve (``pdlp.solve``) and both of
-its block-sparse SpMV kernels (``ops/csrc/block_spmv.cu``).
+Ported so far: the single-device PDLP solve (``pdlp.solve``) with both of
+its block-sparse SpMV kernels (``ops/csrc/block_spmv.cu``), and the batched
+solve (``pdlp.batched.solve_batch``, ``mip.node_lp.PdhgNodeBackend``) with
+its block SpMM kernel (``ops/csrc/block_spmm.cu``).
 """
 
 import torch

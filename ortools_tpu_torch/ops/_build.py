@@ -1,11 +1,13 @@
 """Build and bind the CUDA kernels of ``ops/csrc``.
 
-``nvcc`` compiles ``csrc/block_spmv.cu`` for ``sm_90a`` into a shared
-library with a plain C interface under ``build/kernels/`` at the root of
-the checkout, at first use; the library is loaded with ctypes.  The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and concurrent builds never see a half-written library (each
-writes a private file and renames it into place).
+``nvcc`` compiles each source of ``csrc`` (``block_spmv.cu``: the block-row
+SpMV kernels; ``block_spmm.cu``: the batched block-row SpMM) for
+``sm_90a`` into a shared library with a plain C interface under
+``build/kernels/`` at the root of the checkout, at first use; each library
+is loaded with ctypes.  ``build`` starts one ``nvcc`` per source, all at
+once.  A file name carries a hash of its source and the flags, so an edited
+source is rebuilt and concurrent builds never see a half-written library
+(each writes a private file and renames it into place).
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -20,16 +22,29 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "block_spmv.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"block_spmv": CSRC / "block_spmv.cu",
+           "block_spmm": CSRC / "block_spmm.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_FUNCTIONS = ("block_spmv_exact_f32", "block_spmv_exact_f64",
-              "block_spmv_fast_bf16")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Each library's functions and their argument types.
+_FUNCTIONS = {
+    # schedule, block_cols, data, x, y; num_block_rows, num_long, bm, bn,
+    # device; stream
+    "block_spmv": (("block_spmv_exact_f32", "block_spmv_exact_f64",
+                    "block_spmv_fast_bf16"),
+                   [_P] * 5 + [_I] * 5 + [_P]),
+    # schedule, block_cols, data, x, y; num_block_rows, bm, bn, batch, n,
+    # m, device; stream
+    "block_spmm": (("block_spmm_exact_f32", "block_spmm_exact_f64"),
+                   [_P] * 5 + [_I] * 7 + [_P]),
+}
 
-_lib = None
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -41,48 +56,56 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def _library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libblock_spmv_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the kernels unless this source is built already; returns
-    the compiler's report (``-Xptxas -v``: registers, shared memory and
-    spills of every kernel), kept beside the library."""
-    so = _library_path()
-    log = so.with_suffix(".log")
-    if so.exists() and log.exists():
-        return log.read_text()
+def build(names=tuple(SOURCES)) -> str:
+    """Compile the named sources that are not built yet, one ``nvcc`` each,
+    all started together; returns the compiler's reports (``-Xptxas -v``:
+    registers, shared memory and spills of every kernel), kept beside each
+    library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    report = proc.stdout + proc.stderr
-    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
-    tmp_log.write_text(report)
-    os.replace(tmp, so)
-    os.replace(tmp_log, log)
-    return report
+    running = []
+    for name in names:
+        so = _library_path(name)
+        if so.exists() and so.with_suffix(".log").exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((so, tmp, cmd, proc))
+    failures = []
+    for so, tmp, cmd, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        log = so.with_suffix(".log")
+        tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(out + err)
+        os.replace(tmp, so)
+        os.replace(tmp_log, log)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return "".join(_library_path(name).with_suffix(".log").read_text()
+                   for name in names)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(_library_path()))
-        for name in _FUNCTIONS:
-            fn = getattr(lib, name)
-            # schedule, block_cols, data, x, y; num_block_rows, num_long,
-            # bm, bn, device; stream
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (a key of ``SOURCES``), built
+    first if needed."""
+    if name not in _libs:
+        build((name,))
+        lib = ctypes.CDLL(str(_library_path(name)))
+        functions, argtypes = _FUNCTIONS[name]
+        for fname in functions:
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

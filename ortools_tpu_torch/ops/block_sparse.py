@@ -14,7 +14,10 @@ The host packing is the JAX package's, so the arrays are the same.  A 1-D
 its layout is attached (``with_tiled``); on a CUDA tensor that is the only
 way, because nothing on the card runs the plain product.  Without the
 layout, on the CPU, it is the plain gather + batched mat-vec +
-``index_add_`` of ``_block_matvec``.
+``index_add_`` of ``_block_matvec``.  ``matvec`` of a batch of vectors
+(``[B, N]``, the layout of the batched solve) is the block SpMM in the same
+way: the ``block_spmm_exact`` kernel on a card, its plain version on the
+CPU.  ``matmat`` takes the JAX method's ``[N, k]`` layout.
 """
 
 from __future__ import annotations
@@ -148,10 +151,10 @@ class BlockSparseMatrix:
                        self.dtype, self.device)
 
     def unpad_y(self, y: torch.Tensor) -> torch.Tensor:
-        return y[: self.shape[0]]
+        return y[..., : self.shape[0]]
 
     def unpad_x(self, x: torch.Tensor) -> torch.Tensor:
-        return x[: self.shape[1]]
+        return x[..., : self.shape[1]]
 
     def with_tiled(self, hi: bool = False) -> "BlockSparseMatrix":
         """Attach the block-row kernel layout, with ``hi`` also the bf16
@@ -183,15 +186,32 @@ class BlockSparseMatrix:
 
     # -- products --------------------------------------------------------
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A @ x with x padded to N; returns padded length-M vector."""
+        """A @ x with x padded to N; returns padded length-M vector.  For
+        x of [B, N] (B vectors), returns [B, M]: row b is A @ x[b]."""
+        if x.dim() == 2:
+            if self.tiled is not None:
+                return tiled_spmv.tiled_matmat(self.tiled, x)
+            self._require_cpu(x)
+            return tiled_spmv.block_product_batched(
+                self.data, self.block_rows, self.block_cols, x,
+                self.padded_shape[0] // self.block_shape[0])
         if self.tiled is not None:
             return tiled_spmv.tiled_matvec(self.tiled, x)
+        self._require_cpu(x)
+        return _block_matvec(self.data, self.block_rows, self.block_cols, x,
+                             self.padded_shape[0])
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ X with X padded [N, k] (the JAX method's layout); returns
+        [M, k].  The product runs batch-leading, as ``matvec(X.T)``."""
+        return self.matvec(x.t().contiguous()).t()
+
+    @staticmethod
+    def _require_cpu(x: torch.Tensor) -> None:
         if x.device.type != "cpu":
             raise ValueError(
                 "on a card the product runs only through the block-row "
-                "kernel: attach its layout with with_tiled()")
-        return _block_matvec(self.data, self.block_rows, self.block_cols, x,
-                             self.padded_shape[0])
+                "kernels: attach their layout with with_tiled()")
 
     def matvec_fast(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x through the bf16 stream when attached (~2^-9 relative
@@ -216,14 +236,16 @@ class BlockSparseMatrix:
 
 def _pad_to(v, logical: int, padded: int, value: float, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
+    """Pad the last axis (a vector, or a batch of vectors [B, n])."""
     v = torch.as_tensor(v, dtype=dtype, device=device)
-    if v.shape[0] == padded:
+    if v.shape[-1] == padded:
         return v
-    if v.shape[0] != logical:
-        raise ValueError(f"length {v.shape[0]}: expected {logical} or {padded}")
-    out = torch.full((padded,) + tuple(v.shape[1:]), value, dtype=dtype,
+    if v.shape[-1] != logical:
+        raise ValueError(f"length {v.shape[-1]}: expected {logical} or "
+                         f"{padded}")
+    out = torch.full(tuple(v.shape[:-1]) + (padded,), value, dtype=dtype,
                      device=device)
-    out[:logical] = v
+    out[..., :logical] = v
     return out
 
 

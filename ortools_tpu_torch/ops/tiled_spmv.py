@@ -18,7 +18,9 @@ and adds a block-row CSR index over them (``BlockRowLayout``):
   short row goes to one warp, a long one to one thread block.
 
 ``tiled_matvec`` launches ``block_spmv_exact`` (``csrc/block_spmv.cu``)
-on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``.
+on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``;
+``tiled_matmat``, the product of a batch of vectors (``[B, N]`` in,
+``[B, M]`` out), launches ``block_spmm_exact`` (``csrc/block_spmm.cu``).
 On a CPU tensor each runs its plain version (gather + batched block
 mat-vec + ``index_add_``), which is also what the tests and
 ``chip_smoke.py`` hold the kernels against.  Each wrapper counts its
@@ -145,10 +147,34 @@ def block_product(data: torch.Tensor, block_rows: torch.Tensor,
     return y.reshape(num_block_rows * bm)
 
 
+def block_product_batched(data: torch.Tensor, block_rows: torch.Tensor,
+                          block_cols: torch.Tensor, x: torch.Tensor,
+                          num_block_rows: int) -> torch.Tensor:
+    """Y[b] = A X[b] for X [B, N] over block-COO arrays: gather each
+    block's segment of every instance, one (bm x bn) by (bn x B) product
+    per block, scatter-add into the block rows; returns [B, M] (the
+    PyTorch form of ``ortools_tpu/ops/block_sparse.py::_block_matmat``,
+    with the batch leading)."""
+    bm, bn = int(data.shape[1]), int(data.shape[2])
+    batch = int(x.shape[0])
+    xb = x.reshape(batch, -1, bn).index_select(1, block_cols)  # [B, nb, bn]
+    prod = torch.bmm(data, xb.permute(1, 2, 0))  # [nb, bm, B]
+    y = torch.zeros(num_block_rows, bm, batch, dtype=x.dtype,
+                    device=x.device)
+    y.index_add_(0, block_rows, prod)
+    return y.reshape(num_block_rows * bm, batch).t().contiguous()
+
+
 def tiled_matvec_plain(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
     """Plain version of ``block_spmv_exact``."""
     return block_product(t.data, t.block_rows, t.block_cols, x,
                          t.num_block_rows)
+
+
+def tiled_matmat_plain(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``block_spmm_exact``."""
+    return block_product_batched(t.data, t.block_rows, t.block_cols, x,
+                                 t.num_block_rows)
 
 
 def tiled_matvec_fast_plain(t: BlockRowLayout,
@@ -166,7 +192,7 @@ def tiled_matvec_fast_plain(t: BlockRowLayout,
 
 
 def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
-           x_dtype: torch.dtype) -> None:
+           x_dtype: torch.dtype, batched: bool = False) -> None:
     bm, bn = t.block_shape
     if bm not in KERNEL_BLOCK_DIMS or bn not in KERNEL_BLOCK_DIMS:
         raise ValueError(
@@ -174,9 +200,14 @@ def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
             f"in {KERNEL_BLOCK_DIMS}")
     if x.dtype != x_dtype:
         raise TypeError(f"x is {x.dtype}, the kernel takes {x_dtype}")
-    if x.dim() != 1 or x.shape[0] != t.num_block_cols * bn:
-        raise ValueError(f"x must be the padded length-{t.num_block_cols * bn}"
-                         f" vector, got shape {tuple(x.shape)}")
+    n = t.num_block_cols * bn
+    if batched:
+        if x.dim() != 2 or x.shape[1] != n:
+            raise ValueError(f"x must be [B, {n}] (B padded vectors), got "
+                             f"shape {tuple(x.shape)}")
+    elif x.dim() != 1 or x.shape[0] != n:
+        raise ValueError(f"x must be the padded length-{n} vector, got "
+                         f"shape {tuple(x.shape)}")
     for name, v in (("x", x), ("data", data), ("block_cols", t.block_cols),
                     ("schedule", t.schedule)):
         if v.device != x.device:
@@ -215,7 +246,7 @@ def tiled_matvec(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no kernel for device {x.device}")
     from ortools_tpu_torch.ops import _build
 
-    lib = _build.library()
+    lib = _build.library("block_spmv")
     if t.data.dtype == torch.float32:
         fn = lib.block_spmv_exact_f32
     elif t.data.dtype == torch.float64:
@@ -241,7 +272,7 @@ def tiled_matvec_fast(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no kernel for device {x.device}")
     from ortools_tpu_torch.ops import _build
 
-    lib = _build.library()
+    lib = _build.library("block_spmv")
     _check(t, t.data_hi, x, torch.float32)
     y = torch.empty(t.num_block_rows * t.block_shape[0], dtype=x.dtype,
                     device=x.device)
@@ -250,19 +281,55 @@ def tiled_matvec_fast(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def tiled_matmat(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
+    """Y = X Aᵀ, that is Y[b] = A X[b], exact, in the matrix's dtype (f32
+    or f64); x is [B, N] (B padded vectors, contiguous), y is [B, M]."""
+    if x.device.type == "cpu":
+        return tiled_matmat_plain(t, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    from ortools_tpu_torch.ops import _build
+
+    lib = _build.library("block_spmm")
+    if t.data.dtype == torch.float32:
+        fn = lib.block_spmm_exact_f32
+    elif t.data.dtype == torch.float64:
+        fn = lib.block_spmm_exact_f64
+    else:
+        raise TypeError(f"no exact kernel for {t.data.dtype}")
+    _check(t, t.data, x, t.data.dtype, batched=True)
+    bm, bn = t.block_shape
+    batch, m = int(x.shape[0]), t.num_block_rows * bm
+    y = torch.empty(batch, m, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(ctypes.c_void_p(t.schedule.data_ptr()),
+             ctypes.c_void_p(t.block_cols.data_ptr()),
+             ctypes.c_void_p(t.data.data_ptr()),
+             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+             t.num_block_rows, bm, bn, batch, int(x.shape[1]), m,
+             x.device.index, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    tiled_matmat.launches += 1
+    return y
+
+
 tiled_matvec.launches = 0
 tiled_matvec_fast.launches = 0
+tiled_matmat.launches = 0
 
 
-def launch_counts() -> Tuple[int, int]:
-    """(exact, fast) kernel launches counted so far."""
-    return tiled_matvec.launches, tiled_matvec_fast.launches
+def launch_counts() -> Tuple[int, int, int]:
+    """(exact, fast, SpMM) kernel launches counted so far."""
+    return (tiled_matvec.launches, tiled_matvec_fast.launches,
+            tiled_matmat.launches)
 
 
-def count_launches(exact: int, fast: int) -> None:
+def count_launches(exact: int, fast: int, spmm: int) -> None:
     """Add launches that the wrappers' code did not make itself: a CUDA
     graph's replay launches the kernels it captured, while the capture,
     which ran the wrappers, launched none (its counts are taken back with
     negative numbers)."""
     tiled_matvec.launches += exact
     tiled_matvec_fast.launches += fast
+    tiled_matmat.launches += spmm

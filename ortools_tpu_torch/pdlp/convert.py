@@ -5,6 +5,12 @@ The JAX package's ``DeviceProblem``, ``PdhgState`` and
 turn such numpy arrays into the port's objects, so that each ported
 function can be held against its JAX twin on one shared problem and
 state.  Integer arrays stay int32; float arrays keep their dtype.
+
+A batch (the arrays of ``jax.vmap``: a leading axis B) goes across as it
+is, except that JAX's per-instance scalars, of shape [B], become the
+port's [B, 1] (``state_from_arrays(..., batched=True)``).  A batched
+problem is the shared problem with [B, N] variable bounds, which
+``device_problem_from_arrays`` takes as they are.
 """
 
 from __future__ import annotations
@@ -58,8 +64,15 @@ def device_problem_from_arrays(arrays: Mapping, device="cuda"
     return DeviceProblem(**fields)
 
 
-def state_from_arrays(arrays: Mapping, device="cuda") -> PdhgState:
-    """``arrays`` holds one numpy array per PdhgState field."""
+def state_from_arrays(arrays: Mapping, device="cuda",
+                      batched: bool = False) -> PdhgState:
+    """``arrays`` holds one numpy array per PdhgState field; with
+    ``batched``, a batch whose scalars are [B] (made [B, 1])."""
     device = resolve_device(device)
-    return PdhgState(**{name: _tensor(arrays[name], device)
+
+    def field(v):
+        t = _tensor(v, device)
+        return t[:, None] if batched and t.dim() == 1 else t
+
+    return PdhgState(**{name: field(arrays[name])
                         for name in PdhgState._fields})

@@ -30,6 +30,11 @@ What differs from the JAX module:
 - Every SpMV on a card launches the block-row CUDA kernels
   (``ops/csrc/block_spmv.cu``); the f32 objective reductions accumulate in
   float64 (``ops/df32.py``).
+- The JAX package batches these functions with ``jax.vmap``
+  (``pdlp/batched.py``).  Here the device functions take a leading batch
+  axis themselves: vectors [B, N], per-instance scalars [B, 1], reductions
+  over the last axis (``ops/df32.py``), products of [B, N] inputs through
+  the block SpMM; a 1-D call makes the same torch calls as before.
 - Random vectors come from ``torch.Generator`` (other numbers than
   ``jax.random`` for the same seed): the power-iteration start ``v0``
   (seed 0; it may be passed in) and the projection vectors of
@@ -52,7 +57,7 @@ import torch
 from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.ops import tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix, auto_block_shape
-from ortools_tpu_torch.ops.df32 import sum_df32, vdot_df32
+from ortools_tpu_torch.ops.df32 import dot, sum_df32, vdot_df32, vmax, vnorm, vsum
 from ortools_tpu_torch.pdlp import trust_region
 from ortools_tpu_torch.pdlp.params import OptimalityNorm, PdhgParams, RestartStrategy
 from ortools_tpu_torch.utils.device import resolve_device
@@ -288,12 +293,12 @@ def _make_power_iter(params: PdhgParams):
 
     def power_iter(prob: DeviceProblem, v0: torch.Tensor) -> torch.Tensor:
         mv = _make_matvecs(prob.a, prob.at)
-        v = v0 / torch.linalg.vector_norm(v0)
+        v = v0 / vnorm(v0)
         for _ in range(steps):
             w = mv.rmatvec(mv.matvec(v))
             # in place: w is the product's fresh output
-            v = w.div_(torch.clamp(torch.linalg.vector_norm(w), min=1e-30))
-        return torch.sqrt(torch.linalg.vector_norm(mv.rmatvec(mv.matvec(v))))
+            v = w.div_(torch.clamp(vnorm(w), min=1e-30))
+        return torch.sqrt(vnorm(mv.rmatvec(mv.matvec(v))))
 
     return power_iter
 
@@ -308,7 +313,9 @@ def _dual_prox(y_hat, sigma, con_lb, con_ub):
 
 class _Slots(NamedTuple):
     """The static buffers a major runs on: the PDHG state and the open
-    iteration's attempt state.  Attempt slots update them in place."""
+    iteration's attempt state.  Attempt slots update them in place.  For a
+    batch the counters are [B, 1], one per instance, like the state's
+    scalars."""
 
     state: PdhgState
     attempts: torch.Tensor  # int32: attempts made in the open iteration
@@ -375,13 +382,13 @@ def _make_iteration(params: PdhgParams, fast: bool = False):
         dx = x_cand - st.x
         dy = y_cand - st.y
         movement = 0.5 * (
-            omega * torch.dot(dx, dx) + torch.dot(dy, dy) / omega
+            omega * dot(dx, dx) + dot(dy, dy) / omega
         )
         # A dx = (A(2x'-x) - Ax)/2; for QPs the quadratic objective adds
         # 1/2 dx^T Q dx to the nonlinearity.
         interaction = torch.abs(
-            torch.dot(dy, ax_mid - st.ax)
-        ) * 0.5 + 0.5 * torch.dot(dx, prob.q * dx)
+            dot(dy, ax_mid - st.ax)
+        ) * 0.5 + 0.5 * dot(dx, prob.q * dx)
         limit = torch.where(
             interaction > 0,
             movement / torch.clamp(interaction, min=tiny), math.inf)
@@ -450,8 +457,8 @@ def _make_mp_iteration(params: PdhgParams, fast: bool = False):
         aty_cand = mv.rmatvec(y_cand)  # SpMV
         dy = y_cand - st.y
         dp = aty_cand - st.aty
-        accepted = (omega * tau_new * torch.sqrt(torch.dot(dp, dp))
-                    <= contraction * torch.sqrt(torch.dot(dy, dy)))
+        accepted = (omega * tau_new * torch.sqrt(dot(dp, dp))
+                    <= contraction * torch.sqrt(dot(dy, dy)))
         next_tau = torch.where(accepted, tau_new, downscaling * tau_new)
         attempts = s.attempts + 1
         ends = active & (accepted | (attempts >= max_attempts))
@@ -489,8 +496,8 @@ def _make_run_major(params: PdhgParams, fast: bool = False):
 
 def _norm(v: torch.Tensor, norm: OptimalityNorm) -> torch.Tensor:
     if norm == OptimalityNorm.L_INF:
-        return torch.max(torch.abs(v))
-    return torch.sqrt(torch.dot(v, v))
+        return vmax(torch.abs(v))
+    return torch.sqrt(dot(v, v))
 
 
 def _iterate_stats(prob: DeviceProblem, x, y, ax, aty,
@@ -523,7 +530,7 @@ def _iterate_stats(prob: DeviceProblem, x, y, ax, aty,
     if x_o.dtype == torch.float32:
         _vd, _sm = vdot_df32, sum_df32
     else:
-        _vd, _sm = torch.dot, torch.sum
+        _vd, _sm = dot, vsum
     primal_obj = _vd(prob.orig_c, x_o) + 0.5 * _vd(prob.orig_q, x_o * x_o)
     # Dual objective: l^T[y]+ - u^T[y]- plus the variable-bound term of the
     # absorbed reduced costs, minus the quadratic correction; sign-split
@@ -550,7 +557,7 @@ def _iterate_stats(prob: DeviceProblem, x, y, ax, aty,
     xq = torch.clamp(-r0 / torch.where(q > 0, q, 1.0), prob.orig_var_lb,
                      prob.orig_var_ub)
     quad_term = r0 * xq + 0.5 * q * xq * xq
-    dual_bound = con_term + torch.sum(torch.where(q > 0, quad_term, lin_term))
+    dual_bound = con_term + vsum(torch.where(q > 0, quad_term, lin_term))
 
     return dict(
         primal_objective=primal_obj,
@@ -586,12 +593,11 @@ def _infeasibility_stats(prob: DeviceProblem, x_r, y_r,
     ub_fin = torch.isfinite(prob.orig_var_ub)
     var_viol = torch.clamp(torch.where(lb_fin, -x_o, 0.0), min=0.0) + \
         torch.clamp(torch.where(ub_fin, x_o, 0.0), min=0.0)
-    max_primal_ray_infeas = torch.maximum(torch.max(row_viol),
-                                          torch.max(var_viol))
-    primal_ray_objective = torch.dot(prob.orig_c, x_o)
-    ray_norm_x = torch.max(torch.abs(x_o))
+    max_primal_ray_infeas = torch.maximum(vmax(row_viol), vmax(var_viol))
+    primal_ray_objective = dot(prob.orig_c, x_o)
+    ray_norm_x = vmax(torch.abs(x_o))
     # a valid unboundedness ray of a convex QP needs Q x_r = 0
-    max_quadratic_ray = torch.max(torch.abs(prob.orig_q * x_o))
+    max_quadratic_ray = vmax(torch.abs(prob.orig_q * x_o))
 
     # -- dual ray: -A^T y absorbed on finite variable bounds
     r = -aty_o
@@ -601,17 +607,15 @@ def _infeasibility_stats(prob: DeviceProblem, x_r, y_r,
     # wrong-sign duals at one-sided rows are residuals too
     wrong_sign = torch.clamp(torch.where(~lb_fin_row, y_o, 0.0), min=0.0) + \
         torch.clamp(torch.where(~ub_fin_row, -y_o, 0.0), min=0.0)
-    max_dual_ray_infeas = torch.maximum(torch.max(dual_res),
-                                        torch.max(wrong_sign))
+    max_dual_ray_infeas = torch.maximum(vmax(dual_res), vmax(wrong_sign))
     dual_ray_objective = (
-        torch.sum(torch.where((y_o > 0) & lb_fin_row,
-                              prob.orig_con_lb * y_o, 0.0))
-        + torch.sum(torch.where((y_o < 0) & ub_fin_row,
-                                prob.orig_con_ub * y_o, 0.0))
-        + torch.sum(torch.where(rc > 0, prob.orig_var_lb * rc, 0.0))
-        + torch.sum(torch.where(rc < 0, prob.orig_var_ub * rc, 0.0))
+        vsum(torch.where((y_o > 0) & lb_fin_row, prob.orig_con_lb * y_o, 0.0))
+        + vsum(torch.where((y_o < 0) & ub_fin_row,
+                           prob.orig_con_ub * y_o, 0.0))
+        + vsum(torch.where(rc > 0, prob.orig_var_lb * rc, 0.0))
+        + vsum(torch.where(rc < 0, prob.orig_var_ub * rc, 0.0))
     )
-    ray_norm_y = torch.max(torch.abs(y_o))
+    ray_norm_y = vmax(torch.abs(y_o))
     return dict(
         max_primal_ray_infeasibility=max_primal_ray_infeas,
         primal_ray_objective=primal_ray_objective,
@@ -678,15 +682,15 @@ def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
         # Gaussian random projections of the iterate (reference
         # SetRandomProjections, iteration_stats.cc:321-346).
         projections = {}
-        n, m = state.x.shape[0], state.y.shape[0]
+        n, m = state.x.shape[-1], state.y.shape[-1]
         for seed in seeds:
             key = (seed, n, m, state.x.dtype, state.x.device)
             if key not in projection_vectors:
                 projection_vectors[key] = _projection_vectors(
                     seed, n, m, state.x.dtype, state.x.device)
             kx, ky = projection_vectors[key]
-            projections[f"primal_{seed}"] = torch.dot(kx, state.x) / math.sqrt(n)
-            projections[f"dual_{seed}"] = torch.dot(ky, state.y) / math.sqrt(m)
+            projections[f"primal_{seed}"] = dot(kx, state.x) / math.sqrt(n)
+            projections[f"dual_{seed}"] = dot(ky, state.y) / math.sqrt(m)
 
         out = dict(
             current={k: v for k, v in cur.items() if k != "reduced_costs"},
@@ -723,10 +727,16 @@ def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
     return compute_stats
 
 
+def _is_scalar(v: torch.Tensor) -> bool:
+    """A per-instance scalar: 0-d for one instance, [B, 1] for a batch."""
+    return v.dim() == 0 or (v.dim() == 2 and v.shape[-1] == 1)
+
+
 def _stats_scalars(stats: dict, extra: Optional[dict] = None):
-    """The 0-d tensors of ``compute_stats`` (and of ``extra``) stacked in
-    one float64 vector: returns (groups, names, vector), where ``names``
-    holds (group or None, name) per entry."""
+    """The scalars of ``compute_stats`` (and of ``extra``) stacked in one
+    float64 tensor: returns (groups, names, stacked), where ``names`` holds
+    (group or None, name) per entry.  ``stacked`` is a length-K vector for
+    one instance and a [K, B] matrix for a batch."""
     groups, names, vals = [], [], []
     for k, v in list(stats.items()) + list((extra or {}).items()):
         if isinstance(v, dict):
@@ -734,21 +744,31 @@ def _stats_scalars(stats: dict, extra: Optional[dict] = None):
             for kk, vv in v.items():
                 names.append((k, kk))
                 vals.append(vv)
-        elif v.dim() == 0:
+        elif _is_scalar(v):
             names.append((None, k))
             vals.append(v)
-    return groups, names, torch.stack([v.to(torch.float64) for v in vals])
+    return groups, names, torch.stack([v.to(torch.float64).squeeze(-1)
+                                       for v in vals])
 
 
-def _read_scalars(groups, names, flat: torch.Tensor) -> dict:
-    """``_stats_scalars``' vector as Python floats in ONE device-to-host
-    copy: {group: {name: float}} for the grouped entries and {name: float}
-    for the others."""
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: one device-to-host copy, counted in
+    ``host_syncs`` and timed in ``host_sync_seconds``."""
     global host_syncs, host_sync_seconds
     host_syncs += 1
     t0 = time.perf_counter()
-    values = flat.cpu().tolist()
+    out = t.cpu()
     host_sync_seconds += time.perf_counter() - t0
+    return out
+
+
+def _read_scalars(groups, names, flat: torch.Tensor) -> dict:
+    """``_stats_scalars``' tensor on the host in ONE device-to-host copy:
+    {group: {name: value}} for the grouped entries and {name: value} for
+    the others, a value being a Python float for one instance and a
+    float64 numpy vector of length B for a batch."""
+    flat = _to_host(flat)
+    values = flat.tolist() if flat.dim() == 1 else list(flat.numpy())
     out = {g: {} for g in groups}
     for (g, k), v in zip(names, values):
         if g is None:
@@ -766,17 +786,23 @@ def _stats_to_host(stats: dict) -> dict:
 def _make_apply_restart(params: PdhgParams):
     smoothing = params.primal_weight_update_smoothing
 
-    def apply_restart(prob: DeviceProblem, state: PdhgState, use_avg: bool,
+    def apply_restart(prob: DeviceProblem, state: PdhgState, use_avg,
                       x_avg: torch.Tensor, y_avg: torch.Tensor) -> PdhgState:
+        """``use_avg``: a bool, or for a batch a [B, 1] bool tensor (each
+        instance restarts to its average or its current iterate)."""
         mv = _make_matvecs(prob.a, prob.at)
-        x_new = x_avg if use_avg else state.x
-        y_new = y_avg if use_avg else state.y
+        if isinstance(use_avg, torch.Tensor):
+            x_new = torch.where(use_avg, x_avg, state.x)
+            y_new = torch.where(use_avg, y_avg, state.y)
+        else:
+            x_new = x_avg if use_avg else state.x
+            y_new = y_avg if use_avg else state.y
         ax = mv.matvec(x_new)
         aty = mv.rmatvec(y_new)
         # Primal weight update from distance traveled since last restart
         # (reference ComputeNewPrimalWeight, :1983-2011).
-        dp = torch.linalg.vector_norm(x_new - state.x_restart)
-        dd = torch.linalg.vector_norm(y_new - state.y_restart)
+        dp = vnorm(x_new - state.x_restart)
+        dd = vnorm(y_new - state.y_restart)
         valid = ((dp > 1e-30) & (dd > 1e-30) & torch.isfinite(dp)
                  & torch.isfinite(dd))
         new_w = torch.exp(
@@ -853,6 +879,12 @@ class _Majors:
     nothing, so each replay adds the kernel launches it captured to the
     wrappers' counters.  On the CPU the same functions run eagerly in the
     same order.
+
+    A batch (a state of [B, N] vectors and [B, 1] scalars, a problem with
+    [B, N] variable bounds) runs on the same code: each instance's slots
+    stop changing anything once it has its iterations, its products go
+    through the block SpMM, the statistics come to the host as one [K, B]
+    copy, and a major is done when its slowest instance is.
     """
 
     def __init__(self, prob: DeviceProblem, params: PdhgParams):
@@ -880,7 +912,7 @@ class _Majors:
         A field that is another field's buffer is cloned first."""
         if self.slots is None:
             st = PdhgState(*[v.clone() for v in state])
-            count = torch.zeros((), dtype=torch.int32, device=st.x.device)
+            count = torch.zeros_like(st.num_steps)
             self.slots = _Slots(st, count, torch.zeros_like(st.step_size),
                                 count.clone())
             return
@@ -979,7 +1011,8 @@ class _Majors:
         while True:
             stats, scalars = self._run("stats", fast)
             host = _read_scalars(*scalars)
-            done = int(host.pop("major_accepted"))
+            # a batch is done when its slowest instance is
+            done = int(np.min(host.pop("major_accepted")))
             left = self.freq - done
             if left <= 0:
                 return stats, host
@@ -1003,42 +1036,54 @@ class _Majors:
 
 
 def _make_initial_state(params: PdhgParams):
+    """``initial_state(prob, sigma_max)``.  A problem with [B, N] variable
+    bounds gives a batch of B states; ``sigma_max`` is shared, as under
+    the JAX module's ``vmap(in_axes=(axes, None))``."""
+
     def initial_state(prob: DeviceProblem,
                       sigma_max: torch.Tensor) -> PdhgState:
         mv = _make_matvecs(prob.a, prob.at)
         dtype, device = prob.c.dtype, prob.c.device
+        batch = tuple(prob.var_lb.shape[:-1])
         n = prob.c.shape[0]
         m = prob.con_lb.shape[0]
 
         def scalar(v, dt=dtype):
+            if batch:
+                return torch.full(batch + (1,), v, dtype=dt, device=device)
             return torch.tensor(v, dtype=dt, device=device)
+
+        def per_instance(v):
+            return v.expand(batch + (1,)).clone() if batch else v
 
         x0 = torch.clamp(torch.zeros(n, dtype=dtype, device=device),
                          prob.var_lb, prob.var_ub)
-        y0 = torch.zeros(m, dtype=dtype, device=device)
+        y0 = torch.zeros(batch + (m,), dtype=dtype, device=device)
         # For QPs the curvature of Q also bounds the step; without
         # constraints sigma_max(A) can be 0.
         curvature = torch.maximum(sigma_max, torch.max(prob.q))
-        step0 = scalar(params.initial_step_size_scaling) / torch.clamp(
-            curvature, min=1e-30)
+        step0 = torch.tensor(params.initial_step_size_scaling, dtype=dtype,
+                             device=device) / torch.clamp(curvature,
+                                                          min=1e-30)
         if params.initial_primal_weight is not None:
-            w0 = scalar(params.initial_primal_weight)
+            w0 = torch.tensor(params.initial_primal_weight, dtype=dtype,
+                              device=device)
         else:
             # ||c|| / ||b|| when both positive else 1 (reference :1268).
             w0 = torch.where(
                 (prob.norm_c > 0) & (prob.norm_b > 0),
                 prob.norm_c / torch.clamp(prob.norm_b, min=1e-30),
-                scalar(1.0),
+                torch.tensor(1.0, dtype=dtype, device=device),
             )
         return PdhgState(
             x=x0,
             y=y0,
             ax=mv.matvec(x0),
             aty=mv.rmatvec(y0),
-            step_size=step0,
-            primal_weight=w0,
-            x_sum=torch.zeros(n, dtype=dtype, device=device),
-            y_sum=torch.zeros(m, dtype=dtype, device=device),
+            step_size=per_instance(step0),
+            primal_weight=per_instance(w0),
+            x_sum=torch.zeros(batch + (n,), dtype=dtype, device=device),
+            y_sum=torch.zeros(batch + (m,), dtype=dtype, device=device),
             sum_weights=scalar(0.0),
             x_restart=x0,
             y_restart=y0,

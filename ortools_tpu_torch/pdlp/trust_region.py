@@ -11,7 +11,9 @@ bisection over one vector of length n + m, as in the JAX module.
 
 Every function is torch ops with no read of a device value, so that the
 per-major statistics that call it can be captured in a CUDA graph.  All
-computation is in the solver's scaled space.
+computation is in the solver's scaled space.  For a batch, vectors are
+[B, n] (a shared [n] bound broadcasts over them), ``omega`` and ``radius``
+[B, 1], and each instance solves its own subproblem.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ortools_tpu_torch.ops.df32 import dot, vsum
 
 
 class TrustRegionResult(NamedTuple):
@@ -37,31 +41,37 @@ def solve_joint_trust_region(gx, gy, x, y, lb, ub, ylb, yub, omega, radius,
     ball multiplier; phi(lambda) = sum w d^2 is decreasing, solved for
     phi(lambda) = r^2 by bisection (lambda = 0 when the box optimum is
     already inside the ball).  ``omega`` and ``radius`` are 0-d tensors or
-    numbers."""
+    numbers; for a batch, [B, 1]."""
     dtype, device = gx.dtype, gx.device
     omega = torch.as_tensor(omega, dtype=dtype, device=device)
     radius = torch.as_tensor(radius, dtype=dtype, device=device)
-    g = torch.cat([gx, -gy])
-    z = torch.cat([x, y])
+
+    def like(v, ref):  # a shared bound broadcast over the batch
+        return v if v.shape == ref.shape else v.expand(ref.shape)
+
+    g = torch.cat([gx, -gy], dim=-1)
+    z = torch.cat([x, y], dim=-1)
     # clamp: the center must lie inside the box (guard roundoff)
-    lo = torch.clamp(torch.cat([lb, ylb]) - z, max=0.0)
-    hi = torch.clamp(torch.cat([ub, yub]) - z, min=0.0)
-    w = torch.cat([(omega / 2.0).expand(gx.shape[0]),
-                   (1.0 / (2.0 * omega)).expand(gy.shape[0])])
+    lo = torch.clamp(torch.cat([like(lb, x), like(ylb, y)], dim=-1) - z,
+                     max=0.0)
+    hi = torch.clamp(torch.cat([like(ub, x), like(yub, y)], dim=-1) - z,
+                     min=0.0)
+    w = torch.cat([(omega / 2.0).expand(gx.shape),
+                   (1.0 / (2.0 * omega)).expand(gy.shape)], dim=-1)
     r2 = radius * radius
 
     def phi(lam):
         d = torch.clamp(-g / (2.0 * lam * w), lo, hi)
-        return torch.sum(w * d * d), d
+        return vsum(w * d * d), d
 
     # lambda upper bound: |d| <= |g|/(2 lam w) => phi <= q / (4 lam^2)
     # with q = sum g^2 / w; phi(lam_hi) <= r^2.
-    q = torch.sum(g * g / w)
+    q = vsum(g * g / w)
     tiny = torch.finfo(dtype).tiny
     lam_hi = torch.sqrt(q) / (2.0 * torch.clamp(radius, min=tiny)) + tiny
     # box optimum (lambda -> 0): full move toward the favorable bound
     d0 = torch.where(g > 0, lo, torch.where(g < 0, hi, 0.0))
-    phi0 = torch.sum(w * d0 * d0)
+    phi0 = vsum(w * d0 * d0)
 
     lam_lo = lam_hi * (1e-30 if dtype == torch.float64 else 1e-12)
     lam_up = lam_hi
@@ -74,9 +84,9 @@ def solve_joint_trust_region(gx, gy, x, y, lb, ub, ylb, yub, omega, radius,
     _, d_ball = phi(lam_up)
     d = torch.where(phi0 <= r2, d0, d_ball)
 
-    n = gx.shape[0]
-    primal_delta = torch.dot(gx, d[:n])
-    dual_delta = torch.dot(gy, d[n:])
+    n = gx.shape[-1]
+    primal_delta = dot(gx, d[..., :n])
+    dual_delta = dot(gy, d[..., n:])
     return TrustRegionResult(
         primal_delta_objective=primal_delta,
         dual_delta_objective=dual_delta,
@@ -128,7 +138,7 @@ def localized_gap(prob, x, y, ax, aty, x_start, y_start,
     dx = x - x_start
     dy = y - y_start
     radius = torch.sqrt(
-        0.5 * omega * torch.dot(dx, dx) + 0.5 / omega * torch.dot(dy, dy)
+        0.5 * omega * dot(dx, dx) + 0.5 / omega * dot(dy, dy)
     )
     gx = prob.c + prob.q * x - aty
     s = dual_subgradient(prob.con_lb, prob.con_ub, y, ax)

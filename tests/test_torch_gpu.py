@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the solves
+that run them, on the card.
 
 Every test here is marked ``gpu`` and skips where no card is present; the
 decision is made inside the ``cuda`` fixture, never at import.  The module
@@ -142,6 +143,62 @@ def test_misaligned_input_raises_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The block SpMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,nblocks,block_shape", GPU_SHAPES)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("batch", [1, 8, 40])
+def test_spmm_kernel_matches_plain_on_card(cuda, m, n, nblocks, block_shape,
+                                           transpose, batch):
+    """Y = X Aᵀ for X [B, N]: within 1e-5·(1+‖Y‖∞) of the plain version
+    in f32 and 1e-12 in f64; a repeated launch is bit-identical; B = 40
+    spans two tiles of 32 instances, one partly filled."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        mat = _gpu_pair(m, n, nblocks, block_shape, dtype, cuda)
+        if transpose:
+            mat = mat.block_transpose()
+        lay = mat.with_tiled().tiled
+        g = torch.Generator(device="cpu").manual_seed(batch)
+        x = torch.randn(batch, mat.padded_shape[1], generator=g,
+                        dtype=torch.float64).to(dtype=dtype, device=cuda)
+        before = T.tiled_matmat.launches
+        y = T.tiled_matmat(lay, x)
+        y2 = T.tiled_matmat(lay, x)
+        ref = T.tiled_matmat_plain(lay, x)
+        torch.cuda.synchronize()
+        assert T.tiled_matmat.launches == before + 2
+        assert y.shape == (batch, mat.padded_shape[0])
+        scale = 1 + float(ref.abs().max())
+        assert float((y - ref).abs().max()) <= tol * scale
+        assert torch.equal(y, y2)
+        # row b is the product of row b
+        b = batch - 1
+        ref_b = T.tiled_matvec_plain(lay, x[b].contiguous())
+        assert float((y[b] - ref_b).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_spmm_kernel_on_empty_matrix_and_bad_input_on_card(cuda):
+    mat = TMatrix.from_scipy(sp.csr_matrix((50, 60)), device=cuda)
+    for m in (mat.with_tiled(), mat.block_transpose().with_tiled()):
+        x = torch.ones(3, m.padded_shape[1], device=cuda)
+        assert float(T.tiled_matmat(m.tiled, x).abs().max()) == 0.0
+    lay = mat.with_tiled().tiled
+    before = T.tiled_matmat.launches
+    with pytest.raises(ValueError, match=r"\[B, 128\]"):
+        T.tiled_matmat(lay, torch.ones(128, device=cuda))
+    with pytest.raises(TypeError):
+        T.tiled_matmat(lay, torch.ones(2, 128, device=cuda,
+                                       dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        T.tiled_matmat(lay, torch.ones(128, 2, device=cuda).t())
+    assert T.tiled_matmat.launches == before
+
+
+# ---------------------------------------------------------------------------
 # Majors as CUDA graphs
 # ---------------------------------------------------------------------------
 
@@ -199,11 +256,126 @@ def test_graph_majors_equal_eager_slots_on_card(cuda, rule, step_scale):
     for name, a, b in zip(S.PdhgState._fields, g_state, e_state):
         assert torch.equal(a, b), name
     assert g_hosts == e_hosts
-    assert g_launches == e_launches and min(g_launches) > 0
+    # (exact, fast, SpMM): one instance runs no SpMM
+    assert g_launches == e_launches and min(g_launches[:2]) > 0
+    assert g_launches[2] == 0
     if step_scale > 1.0:
         assert int(g_state.num_steps) > int(g_state.num_accepted)
     # four majors: one read each, and one more per round of tail slots
     assert 4 <= g_syncs <= 8
+
+
+def _moderate_batch(cuda, batch=8, seed=3, **kw):
+    """The 2048^2 block LP (f32, 8x128 blocks) and a batch of its variable
+    bounds: in each instance a fifth of the variables boxed to within 1 of
+    the generator's feasible point (so every instance stays feasible),
+    drawn from a seed."""
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams
+
+    qp = block_random_lp(2048, 2048, 512, (8, 128), seed=seed)
+    # block_random_lp's draws: cells, values, then its feasible point x0
+    g = np.random.default_rng(seed)
+    g.choice(256 * 16, size=512, replace=False)
+    g.standard_normal(512 * 8 * 128)
+    x0 = g.uniform(0.0, 5.0, size=2048)
+    assert np.all(qp.constraint_matrix @ x0 <= qp.constraint_upper)
+    rng = np.random.default_rng(seed + 100)
+    box = rng.random((batch, 2048)) < 0.2
+    lbs = np.where(box, np.maximum(0.0, x0 - rng.uniform(0, 1, box.shape)),
+                   qp.variable_lower)
+    ubs = np.where(box, np.minimum(10.0, x0 + rng.uniform(0, 1, box.shape)),
+                   qp.variable_upper)
+    return qp, lbs, ubs, PdhgParams(block_shape=(8, 128), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step_scale", [1.0, 30.0])
+def test_batched_graph_majors_equal_eager_slots_on_card(cuda, step_scale):
+    """A replayed batched major is the same slots run eagerly, bit for
+    bit, with rejected attempts in some instances; each replay adds the
+    SpMM launches it captured to the counters."""
+    from ortools_tpu_torch.pdlp import batched as TB
+    from ortools_tpu_torch.pdlp import solver as S
+
+    qp, lbs, ubs, params = _moderate_batch(cuda)
+    solver = TB.BatchSolver(qp, params, len(lbs), device=cuda)
+    solver._start(lbs, ubs, None, None)
+    state = solver.majors.snapshot()
+    scale = torch.ones_like(state.step_size)
+    scale[1::2] = step_scale
+    state = state._replace(step_size=state.step_size * scale)
+    runs = []
+    for graphs in (True, False):
+        majors = S._Majors(solver.majors.prob, params)
+        majors.use_graphs = graphs
+        majors.load(state)
+        majors.major()  # capture (graphs) or warm-up
+        before = T.launch_counts()
+        S.host_syncs = 0
+        hosts = [majors.major()[1] for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(T.launch_counts(), before))
+        runs.append((majors.snapshot(), hosts, launches, S.host_syncs))
+    (g_state, g_hosts, g_launches, g_syncs), (e_state, e_hosts,
+                                              e_launches, _) = runs
+    for name, a, b in zip(S.PdhgState._fields, g_state, e_state):
+        assert torch.equal(a, b), name
+    for gh, eh in zip(g_hosts, e_hosts):
+        assert gh.keys() == eh.keys()
+        for k in ("kkt_current", "kkt_average", "step_size"):
+            np.testing.assert_array_equal(gh[k], eh[k])
+    assert g_launches == e_launches
+    assert g_launches[2] > 0 and g_launches[1] == 0
+    if step_scale > 1.0:
+        steps = (g_state.num_steps - g_state.num_accepted).cpu().numpy()
+        assert steps[1::2].min() > steps[0::2].min()
+    assert 2 <= g_syncs <= 4
+
+
+@pytest.mark.gpu
+def test_node_backend_second_call_captures_nothing_on_card(cuda):
+    """A backend keeps its solver: the second call captures no graph and
+    gives what a fresh backend gives, bit for bit; every product of the
+    batched path went through the SpMM kernel."""
+    from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
+    from ortools_tpu_torch.pdlp import solver as S
+
+    qp, lbs, ubs, params = _moderate_batch(cuda, iteration_limit=64 * 6)
+    backend = PdhgNodeBackend(qp, params, 8, device=cuda)
+    S.capture_seconds = 0.0
+    backend.solve(lbs[:6], ubs[:6])
+    assert S.capture_seconds > 0
+    S.capture_seconds = 0.0
+    before = T.launch_counts()
+    second = backend.solve(lbs[2:], ubs[2:])
+    launches = tuple(a - b for a, b in zip(T.launch_counts(), before))
+    assert S.capture_seconds == 0.0
+    assert launches[2] > 0 and launches[1] == 0
+    fresh = PdhgNodeBackend(qp, params, 8, device=cuda).solve(lbs[2:],
+                                                             ubs[2:])
+    for f in ("primal_solution", "dual_solution", "dual_bound", "optimal",
+              "primal_infeasible"):
+        np.testing.assert_array_equal(getattr(second, f), getattr(fresh, f))
+
+
+@pytest.mark.gpu
+def test_solve_batch_on_card_matches_highs(cuda):
+    """Eight instances of the moderate LP with their own bounds, f64,
+    each OPTIMAL within 1e-4·(1+|ref|) of HiGHS on its bounds."""
+    from scipy.optimize import linprog
+
+    from ortools_tpu_torch.pdlp.batched import solve_batch
+
+    qp, lbs, ubs, params = _moderate_batch(cuda, dtype=torch.float64)
+    r = solve_batch(qp, lbs, ubs, params)
+    assert r.optimal.all()
+    for i in range(len(lbs)):
+        ref = linprog(qp.objective_vector, A_ub=qp.constraint_matrix,
+                      b_ub=qp.constraint_upper,
+                      bounds=list(zip(lbs[i], ubs[i])), method="highs")
+        assert abs(r.primal_objective[i] - ref.fun) <= 1e-4 * (1 + abs(ref.fun))
+        assert r.dual_bound[i] <= ref.fun + 1e-4 * (1 + abs(ref.fun))
 
 
 @pytest.mark.gpu

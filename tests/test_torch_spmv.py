@@ -2,7 +2,8 @@
 
 On the CPU the plain versions are held against the JAX Pallas kernels run
 in interpret mode (as ``tests/test_tiled_spmv.py`` runs them) and against
-scipy; the port's df32 counterparts against ``ortools_tpu/ops/df32.py``.
+scipy, the plain block SpMM against the JAX package's ``_block_matmat``;
+the port's df32 counterparts against ``ortools_tpu/ops/df32.py``.
 The CUDA kernels are held against the plain versions on the card in
 ``tests/test_torch_gpu.py``.
 """
@@ -15,6 +16,7 @@ import torch
 
 from ortools_tpu.ops import df32 as jdf32
 from ortools_tpu.ops.block_sparse import BlockSparseMatrix as JMatrix
+from ortools_tpu.ops.block_sparse import _block_matmat as _jax_block_matmat
 from ortools_tpu.ops.tiled_spmv import pack_tiled, tiled_matvec, tiled_matvec_fast
 
 from ortools_tpu_torch.ops import df32 as tdf32
@@ -211,3 +213,89 @@ def test_make_layout_is_deterministic():
         assert torch.equal(getattr(tm.tiled, name),
                            getattr(again.tiled, name)), name
     assert tm.tiled.num_long == again.tiled.num_long
+
+
+# ---------------------------------------------------------------------------
+# The batched product (block SpMM) and its plain version
+# ---------------------------------------------------------------------------
+
+# Every block shape the kernels take, on a 256 x 384 matrix.
+SPMM_SHAPES = [(bm, bn) for bm in (8, 32, 128) for bn in (8, 32, 128)]
+
+
+def _spmm_pair(block_shape, seed, density=0.05, shape=(256, 384)):
+    rng = np.random.default_rng(seed)
+    a = sp.random(*shape, density=density, random_state=rng, format="csr")
+    jm = JMatrix.from_scipy(a, block_shape=block_shape, dtype=jnp.float64)
+    tm = TMatrix.from_scipy(a, block_shape=block_shape, dtype=torch.float64,
+                            device="cpu")
+    return a, jm, tm
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("block_shape", SPMM_SHAPES + ["empty"],
+                         ids=[f"{bm}x{bn}" for bm, bn in SPMM_SHAPES]
+                         + ["empty"])
+def test_plain_spmm_matches_jax_block_matmat(block_shape, batch):
+    """The plain SpMM (batch leading, [B, N] -> [B, M]) against the JAX
+    package's ``_block_matmat`` ([N, k] -> [M, k]) in f64, at rtol 1e-12;
+    with and without the kernel layout, and through ``matmat``."""
+    if block_shape == "empty":
+        a = sp.csr_matrix((50, 60))
+        jm = JMatrix.from_scipy(a, dtype=jnp.float64)
+        tm = TMatrix.from_scipy(a, dtype=torch.float64, device="cpu")
+    else:
+        a, jm, tm = _spmm_pair(block_shape, seed=batch + block_shape[0])
+    rng = np.random.default_rng(batch)
+    x = rng.standard_normal((batch, tm.padded_shape[1]))
+    ref = np.asarray(_jax_block_matmat(jm.data, jm.block_rows, jm.block_cols,
+                                       jnp.asarray(x.T),
+                                       jm.padded_shape[0])).T
+    scale = 1 + np.abs(ref).max(initial=0)
+    for mat in (tm, tm.with_tiled()):
+        y = mat.matvec(torch.tensor(x))
+        assert y.shape == (batch, tm.padded_shape[0])
+        np.testing.assert_allclose(y.numpy(), ref, rtol=1e-12,
+                                   atol=1e-12 * scale)
+    lay = tm.with_tiled().tiled
+    np.testing.assert_array_equal(T.tiled_matmat(lay, torch.tensor(x)),
+                                  T.tiled_matmat_plain(lay, torch.tensor(x)))
+    np.testing.assert_allclose(tm.matmat(torch.tensor(x.T)).numpy(), ref.T,
+                               rtol=1e-12, atol=1e-12 * scale)
+    np.testing.assert_allclose(ref[:, :a.shape[0]],
+                               (a @ x[:, :a.shape[1]].T).T, rtol=1e-12,
+                               atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("block_shape", [(8, 128), (128, 8), (32, 32)])
+def test_batched_matvec_is_the_rows_products(block_shape):
+    """``matvec`` of a [B, N] input is, row for row, the 1-D product of
+    each row (the plain versions sum in the same order)."""
+    _, _, tm = _spmm_pair(block_shape, seed=7, density=0.1)
+    x = torch.tensor(np.random.default_rng(1).standard_normal(
+        (5, tm.padded_shape[1])))
+    for mat in (tm, tm.with_tiled()):
+        y = mat.matvec(x)
+        for b in range(5):
+            assert torch.equal(y[b], mat.matvec(x[b]))
+
+
+def test_batched_padding_helpers_work_on_the_last_axis():
+    _, _, tm = _spmm_pair((8, 128), seed=2, shape=(250, 300))
+    assert tm.padded_shape == (256, 384)
+    x = tm.pad_x(np.ones((3, 300)), value=2.0)
+    assert x.shape == (3, 384) and float(x[1, 299]) == 1.0
+    assert float(x[1, 300]) == 2.0
+    y = tm.pad_y(np.ones((3, 250)), value=-1.0)
+    assert y.shape == (3, 256) and float(y[2, 250]) == -1.0
+    assert tm.unpad_y(y).shape == (3, 250)
+    assert tm.unpad_x(x).shape == (3, 300)
+    assert tm.matvec(x).shape == (3, 256)
+
+
+def test_spmm_counter_untouched_on_cpu():
+    _, _, tm = _spmm_pair((8, 128), seed=3)
+    before = T.launch_counts()
+    tm.with_tiled().matvec(torch.ones(4, tm.padded_shape[1],
+                                      dtype=torch.float64))
+    assert T.launch_counts() == before and len(before) == 3
