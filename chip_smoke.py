@@ -49,7 +49,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    a second call that must capture nothing; aggregate LP-iterations/s, host
    syncs per major, capture seconds, peak memory, kernels per iteration and
    the busy share of a batched major, and the SpMM's time at B = 64 beside
-   its bound, its plain version and cuSPARSE SpMM (L2-cold).
+   its bound and the bytes it gathers through L2, its plain version and
+   cuSPARSE SpMM (f32, L2-cold and L2-warm), and its f64 time.
 8. The ``kernels`` line (JSON), the total time, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -83,10 +84,11 @@ from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor
-# cores (the kernels multiply in f32 on the CUDA cores).
+# NVIDIA H100 SXM data sheet: HBM3 rate and the f32 and f64 rates outside
+# the tensor cores (the kernels multiply on the CUDA cores).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12  # f64 outside the tensor cores (the SpMM's f64 FMAs)
 L2_BYTES = 50 * 2**20
 
 BENCH = dict(m=16384, n=16384, num_blocks=4096, block_shape=(8, 128), seed=0)
@@ -1043,42 +1045,66 @@ def batched_rates(backend) -> None:
     device_profile(majors, {"exact": major_s}, streams=(("exact", False),))
 
 
-def spmm_times(prob) -> dict:
-    """The SpMM at the bench shape and B = 64, A and A^T, L2-cold: its
-    time, its plain version's, cuSPARSE SpMM's (a torch sparse CSR matrix
-    times a dense [N, B] matrix) and its bound."""
+def spmm_bound(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
+    """Least time of one SpMM at B = ``BATCH``: the blocks, X and Y once
+    each over the memory rate, against 2 flops per stored entry per
+    instance over the rate of the value type; returns (ms, "bytes" |
+    "operations", bytes, flops, bytes gathered through L2).  The last is
+    what a row-wise kernel reads of X: each block's x segment for every
+    instance, nb * bn * B values."""
+    lay = mat.tiled
+    nb, (bm, bn) = mat.num_blocks, mat.block_shape
+    m, n = mat.padded_shape
+    nbytes = ((nb * bm * bn + (n + m) * BATCH) * value_bytes
+              + (lay.num_block_rows + 1) * 4 + nb * 4)
+    flops = 2 * nb * bm * bn * BATCH
+    peak = PEAK_F32_FLOPS if value_bytes == 4 else PEAK_F64_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops) * 1e3, bound_by, nbytes, flops,
+            nb * bn * BATCH * value_bytes)
+
+
+def spmm_times(prob, plain: bool = True) -> dict:
+    """The SpMM at the bench shape and B = 64, A and A^T, f32 then f64: its
+    time L2-cold and L2-warm beside its bound and the bytes it gathers
+    through L2; in f32 also its plain version's time and cuSPARSE SpMM's
+    (a torch sparse CSR matrix times a dense [N, B] matrix).  Keys "A",
+    "A^T" (f32), "f64 A", "f64 A^T"."""
     out = {}
-    for orient, mat in (("A", prob.a), ("A^T", prob.at)):
-        lays = _cold_copies(mat.tiled)
-        x = _batch_x(mat, BATCH, torch.float32, 2)
-        xt = x.t().contiguous()
-        csrs = _csr_copies(mat, len(lays))
-        args = [(t, x) for t in lays]
-        ms = time_launches(SPMM["wrapper"], args, 200)
-        warm_ms = time_launches(SPMM["wrapper"], args[:1], 200)
-        plain_ms = time_launches(SPMM["plain"], args, 20)
-        library_ms = time_launches(lambda a, v: a @ v,
-                                   [(c, xt) for c in csrs], 100)
-        lay = mat.tiled
-        nb, (bm, bn) = mat.num_blocks, mat.block_shape
-        m, n = mat.padded_shape
-        nbytes = (nb * bm * bn * 4 + (n + m) * BATCH * 4
-                  + (lay.num_block_rows + 1) * 4 + nb * 4)
-        flops = 2 * nb * bm * bn * BATCH
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{SPMM['name']} {orient:3s} {mat.block_shape} B={BATCH}: "
-              f"kernel {ms:.4f} ms (L2-warm {warm_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, cuSPARSE SpMM (CSR @ dense) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} "
-              f"bytes: {t_bytes * 1e3:.4f} ms; {flops} flops: "
-              f"{t_ops * 1e3:.4f} ms; {bound_by}); kernel at "
-              f"{bound_ms / ms:.1%} of bound", flush=True)
-        out[orient] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-        del lays, csrs
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+            if not f32:
+                mat = dataclasses.replace(mat, data=mat.data.double(),
+                                          tiled=None).with_tiled()
+            lays = _cold_copies(mat.tiled)
+            x = _batch_x(mat, BATCH, dtype, 2)
+            args = [(t, x) for t in lays]
+            ms = time_launches(SPMM["wrapper"], args, 200)
+            warm_ms = time_launches(SPMM["wrapper"], args[:1], 200)
+            plain_ms = library_ms = None
+            if f32 and plain:
+                plain_ms = time_launches(SPMM["plain"], args, 20)
+                xt = x.t().contiguous()
+                library_ms = time_launches(
+                    lambda a, v: a @ v,
+                    [(c, xt) for c in _csr_copies(mat, len(lays))], 100)
+            bound_ms, bound_by, nbytes, flops, gathered = spmm_bound(
+                mat, 4 if f32 else 8)
+            label = orient if f32 else f"f64 {orient}"
+            extra = ("" if plain_ms is None else
+                     f", plain {plain_ms:.4f} ms, cuSPARSE SpMM (CSR @ "
+                     f"dense) {library_ms:.4f} ms")
+            print(f"{SPMM['name']} {label:7s} {mat.block_shape} B={BATCH}: "
+                  f"kernel {ms:.4f} ms (L2-warm {warm_ms:.4f} ms){extra}, "
+                  f"bound {bound_ms:.4f} ms ({nbytes} bytes, {flops} flops;"
+                  f" {bound_by}), {gathered} bytes of x gathered through L2;"
+                  f" kernel at {bound_ms / ms:.1%} of bound", flush=True)
+            out[label] = dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, gathered_bytes=gathered)
+            del lays, args
     return out
 
 
@@ -1169,7 +1195,8 @@ def main() -> int:
         max_abs_err=errs[SPMM["name"]], ms=a["ms"], plain_ms=a["plain_ms"],
         bound_ms=a["bound_ms"], bound_by=a["bound_by"],
         library_ms=a["library_ms"], warm_ms=a["warm_ms"], batch=BATCH,
-        transpose=spmm["A^T"], ok=True))
+        gathered_bytes=a["gathered_bytes"], transpose=spmm["A^T"],
+        f64=[spmm["f64 A"], spmm["f64 A^T"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

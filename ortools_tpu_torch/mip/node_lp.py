@@ -41,8 +41,12 @@ class PdhgNodeBackend:
     problem, σ_max, and the majors with their buffers and captured CUDA
     graphs, which hold for a fixed batch size B.  A short batch is
     therefore padded by repeating its first node, so that every call runs
-    on the same graphs and a second call captures nothing.  A call with
-    other ``lp_params`` builds a new solver.  ``device`` and ``v0`` (the
+    on the same graphs and a second call captures nothing.  The
+    branch-and-bound raises ``iteration_limit`` for a batch that holds a
+    retried node; only the host loop reads it, so a call whose
+    ``lp_params`` differ from the solver's in ``iteration_limit`` alone
+    keeps the solver and passes the limit to it.  A call with other
+    ``lp_params`` builds a new solver.  ``device`` and ``v0`` (the
     power-iteration start) are those of ``solve_batch``."""
 
     name = "pdhg"
@@ -57,7 +61,11 @@ class PdhgNodeBackend:
         self._solver: Optional[BatchSolver] = None
 
     def _solver_for(self, params: PdhgParams) -> BatchSolver:
-        if self._solver is None or self._solver.params != params:
+        """The kept solver, unless ``params`` differ from its params in
+        more than ``iteration_limit``."""
+        kept = None if self._solver is None else self._solver.params
+        if kept is None or dataclasses.replace(
+                params, iteration_limit=kept.iteration_limit) != kept:
             self._solver = BatchSolver(self.qp, params, self.batch_size,
                                        device=self.device, v0=self.v0)
         return self._solver
@@ -72,9 +80,11 @@ class PdhgNodeBackend:
                 return v
             return np.concatenate([v, np.repeat(v[:1], pad, axis=0)])
 
-        solver = self._solver_for(lp_params or self.lp_params)
+        params = lp_params or self.lp_params
+        solver = self._solver_for(params)
         res = solver.solve(padded(lbs), padded(ubs), padded(warm_x),
-                           padded(warm_y), deadline)
+                           padded(warm_y), deadline,
+                           iteration_limit=params.iteration_limit)
         return NodeLpResult(
             primal_solution=res.primal_solution[:n_real],
             dual_solution=res.dual_solution[:n_real],

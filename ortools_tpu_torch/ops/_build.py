@@ -38,10 +38,10 @@ _FUNCTIONS = {
     "block_spmv": (("block_spmv_exact_f32", "block_spmv_exact_f64",
                     "block_spmv_fast_bf16"),
                    [_P] * 5 + [_I] * 5 + [_P]),
-    # schedule, block_cols, data, x, y; num_block_rows, bm, bn, batch, n,
-    # m, device; stream
+    # items, row_ptr, block_cols, data, x, y; num_items, num_block_rows,
+    # bm, bn, batch, n, m, device; stream
     "block_spmm": (("block_spmm_exact_f32", "block_spmm_exact_f64"),
-                   [_P] * 5 + [_I] * 7 + [_P]),
+                   [_P] * 6 + [_I] * 8 + [_P]),
 }
 
 _libs: dict = {}

@@ -3,8 +3,9 @@
 // both contiguous with the batch leading (the layout of the batched state).
 // A is the block-row layout of block_spmv.cu: dense (bm x bn) blocks sorted
 // by (row, col), data [num_blocks, bm, bn] row-major, block_cols per block,
-// and make_layout's schedule of (block-row, first block, end block, 0)
-// entries, longest rows first.
+// row_ptr over the block-rows; and make_layout's SpMM work items
+// (tiled_spmv.py::spmm_schedule), one (first block-row, end block-row,
+// first row within the blocks, 0) entry each.
 //
 // What it replaces: ortools_tpu/ops/block_sparse.py::_block_matmat, the XLA
 // block einsum (gather, "bij,bjk->bik", segment_sum) that the JAX package's
@@ -13,43 +14,66 @@
 // except through its own kernels.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores,
-// at 700 W), the same for any implementation: the blocks once plus X and Y
-// once each, against 2 flops per stored entry per instance.  At the bench
-// shape (16384^2, 4096 blocks of 8x128) and B = 64 in f32: 16.8 MB + 2 x
-// 4.2 MB = 25.2 MB, 7.5 us; 2 x 4096 x 1024 x 64 = 0.54 GFLOP, 8.0 us.  So
-// the work sits at the ridge of the f32 cores: a kernel has to reuse each
-// block across the batch (one read per tile of instances, not one per
-// instance) and keep the FMA units fed.
+// at 700 W): the blocks once plus X and Y once each, against 2 flops per
+// stored entry per instance.  At the bench shape (16384^2, 4096 blocks of
+// 8x128) and B = 64 in f32: 25.2 MB, 7.5 us; 0.54 GFLOP, 8.0 us.  A
+// row-wise kernel also gathers each block's x segment for every instance
+// through L2: nb * bn * B * 4 bytes, 134 MB for A (8x128 blocks) and 8.4 MB
+// for A^T (128x8) at that shape.  So A is held by the L2 gather, not by the
+// bound, and A^T by the f32 FMA rate.
 //
-// This first design is simple and right; tensor cores, TMA and a tuned tile
-// are later work.
-// - A thread block takes one block-row of the schedule and a tile of 32
-//   instances (gridDim.y tiles); lane l of every warp owns instance
-//   b0 + l.  The warps split the block's rows (R rows each) and, where a
-//   block has few rows, its columns (KS ways), so that each stored block is
-//   read from device memory once per tile.
-// - For each round of G blocks the thread block stages the tile's x
-//   segments in shared memory (16-byte loads, neighbouring threads on
-//   neighbouring addresses; rows padded by 16 bytes, so that a warp's
-//   16-byte reads of 32 instances hit every bank once).  Each thread then
-//   reads its rows of the block as 16-byte broadcast loads (all lanes of a
-//   warp read the same address) and accumulates R sums with FMAs.
-// - The KS column parts of a row meet in shared memory in a fixed order,
-//   and the tile's Y entries leave with the row index fastest (32 or more
-//   contiguous bytes per instance).
+// The design (it replaces a first kernel that took one block-row and 32
+// instances per thread block, staged x, then computed with nothing in
+// flight, and summed 8 column parts per row: 63-70 us at that shape):
+// - Work items (the schedule): an item takes up to 32 rows of each of its
+//   blocks and 64 instances (gridDim.y tiles of the batch).  Block-rows of
+//   blocks at most 32 tall are grouped into items of several consecutive
+//   rows (about 8192 stored entries), so that each item pays one start-up
+//   for several short rows; taller blocks are split into slices of 32 rows,
+//   one item per row and slice, so that a long row of tall blocks keeps
+//   several SMs busy.  Items come longest first.
+// - Register tiles: each thread keeps a 4-row x 4-instance tile of sums.
+//   Per 16 bytes of k it loads 4 A vectors and 4 x vectors from shared
+//   memory and does 64 (f32) or 32 (f64) FMAs.  A warp spans 2 row groups
+//   and 16 instance groups (instances ig + 16 j), so its A loads are 2
+//   broadcast addresses and its x loads 16 addresses in distinct bank groups
+//   (rows padded by 16 bytes).
+// - Where one block-row's tile has fewer threads' worth of work than the
+//   thread block (8-row blocks), the thread block splits k KS ways; the KS
+//   partial tiles meet in shared memory at the end of each row and are
+//   summed in a fixed order.
+// - Pipelined staging: a ring of 3 stages in dynamic shared memory, each
+//   holding a k-slice of one block (or several narrow blocks of one row):
+//   its rows of A and the 64 instances' x segments, copied with cp.async
+//   (16 bytes a thread, L2 only), two stages in flight while the third is
+//   multiplied.
 //
 // Deterministic output: each Y entry is written by exactly one thread, each
-// thread sums its blocks and columns in a fixed order, and the column parts
-// meet in a fixed order.  No atomics, so repeated launches are
-// bit-identical.  The kernel launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// thread sums its k range in a fixed order, and the partial tiles meet in a
+// fixed order; no atomics, so repeated launches are bit-identical.  The
+// kernel launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;          // instances of a thread block: one a lane
-constexpr int kStageBytes = 40960; // x staged per round, at most
+constexpr int kBatchTile = 64;  // instances of a work item
+constexpr int kRows = 4;        // rows of a thread's register tile
+constexpr int kInstF32 = 8;     // instances of a thread's register tile
+constexpr int kInstF64 = 4;     // (f32, f64)
+constexpr int kMaxRows = 32;    // rows of its blocks an item takes (SPMM_ROWS)
+constexpr int kItemRows = 64;   // block-rows of an item, at most
+constexpr int kStages = 2;
+constexpr int kStageBytes = 20480;  // of a stage of narrow blocks, at most
+constexpr int kMinThreads = 128;
+constexpr int kSlotBytes = 256;     // of a row of a slot, at most
+constexpr int kMinBlocks = 1;       // resident thread blocks an SM must fit
+constexpr int kUnroll = 1;          // 16-byte k chunks multiplied per round
+
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int pow2_floor(int v) { return v < 2 ? 1 : 2 * pow2_floor(v / 2); }
 
 template <class T>
 struct Vec16;
@@ -61,6 +85,10 @@ struct Vec16<float> {
     acc = fmaf(a.y, x.y, acc);
     acc = fmaf(a.z, x.z, acc);
     return fmaf(a.w, x.w, acc);
+  }
+  static __device__ __forceinline__ void store4(float* p, float a, float b,
+                                                float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
   }
   static __device__ __forceinline__ float4 zero() {
     return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -74,130 +102,318 @@ struct Vec16<double> {
     acc = fma(a.x, x.x, acc);
     return fma(a.y, x.y, acc);
   }
+  static __device__ __forceinline__ void store4(double* p, double a, double b,
+                                                double c, double d) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+    reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
+  }
   static __device__ __forceinline__ double2 zero() {
     return make_double2(0.0, 0.0);
   }
 };
 
-constexpr int cmin(int a, int b) { return a < b ? a : b; }
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// 16 bytes from global to shared memory, cached in L2 only; with
+// valid == false the 16 bytes are zero-filled and src is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-// The work split of one (bm x bn) block shape.
+// The tiling of one (bm x bn) block shape.
 template <class T, int BM, int BN>
-struct Shape {
-  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per 16 B
-  static constexpr int R = cmin(BM, 16);           // rows of a thread
-  static constexpr int WR = BM / R;                // warps along the rows
-  static constexpr int KS = cmin(8 / WR, BN / VEC);  // warps along the columns
-  static constexpr int WARPS = WR * KS;
-  static constexpr int JC = BN / KS;               // columns of a warp
-  static constexpr int XS = BN + VEC;              // staged row stride
-  static constexpr int TILE = kTile * XS;          // values of a staged block
-  static constexpr int G = cmax(
-      1, cmin(16, kStageBytes / (TILE * static_cast<int>(sizeof(T)))));
-  static constexpr int RS = kTile + 1;             // partial-sum row stride
-  static constexpr int SMEM =
-      cmax(G * TILE, KS * BM * RS) * static_cast<int>(sizeof(T));
-  static_assert(BM % R == 0 && WR <= 8 && JC % VEC == 0, "shape");
-  static_assert(SMEM <= 48 * 1024, "static shared memory");
+struct Cfg {
+  static constexpr int SZ = static_cast<int>(sizeof(T));
+  static constexpr int VEC = 16 / SZ;              // values per 16 bytes
+  static constexpr int RT = cmin(BM, kMaxRows);     // rows of an item
+  static constexpr int RG = RT / kRows;             // row groups
+  static constexpr int INST = SZ == 4 ? kInstF32 : kInstF64;
+  static constexpr int IG = kBatchTile / INST;      // instance groups
+  static constexpr int GS = RG * IG;                // threads of a k group
+  static constexpr int THREADS = cmax(GS, kMinThreads);
+  static constexpr int KS = THREADS / GS;           // k groups
+  static constexpr int KC = cmin(BN, kSlotBytes / SZ);  // columns of a slot
+  static constexpr int STEPS = BN / KC;             // slots of a block
+  static constexpr int XS = KC + VEC;               // padded row of a slot
+  static constexpr int A_SLOT = RT * XS;
+  static constexpr int SLOT = A_SLOT + kBatchTile * XS;
+  static constexpr int G =                          // blocks of a stage
+      STEPS > 1 ? 1 : pow2_floor(cmax(1, kStageBytes / (SLOT * SZ)));
+  static constexpr int STAGE = G * SLOT;
+  static constexpr int CW = G * KC / KS;            // columns of a k group
+  static constexpr int PS = RT + VEC;               // padded partial row
+  static constexpr int PART = KS > 1 ? KS * kBatchTile * PS : 0;
+  static constexpr int SMEM = (kStages * STAGE + PART) * SZ;
+  static_assert(BM % RT == 0 && RT % kRows == 0 && BN % KC == 0 &&
+                    kRows % 4 == 0, "shape");
+  static_assert(KC % VEC == 0 && CW % VEC == 0 && CW > 0, "k split");
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "threads");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+// Where a walk over an item's blocks stands: block p, column offset kc
+// within it, and row r (an index into the item's row_ptr slice rp, whose
+// row ends past p).
+struct Cursor {
+  int p, kc, r;
 };
 
 template <class T, int BM, int BN>
-__global__ void __launch_bounds__(Shape<T, BM, BN>::WARPS * 32)
-block_spmm_kernel(const int4* __restrict__ schedule,
+__global__ void __launch_bounds__(Cfg<T, BM, BN>::THREADS, kMinBlocks)
+block_spmm_kernel(const int4* __restrict__ items,
+                  const int32_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ block_cols,
                   const T* __restrict__ data, const T* __restrict__ x,
                   T* __restrict__ y, int batch, int n, int m) {
-  using S = Shape<T, BM, BN>;
+  using C = Cfg<T, BM, BN>;
   using VT = Vec16<T>;
   using V = typename VT::V;
-  constexpr int CPR = BN / S::VEC;  // 16-byte chunks of one x segment
-  constexpr int THREADS = S::WARPS * 32;
-  __shared__ __align__(16) unsigned char smem[S::SMEM];
-  T* xs = reinterpret_cast<T*>(smem);
+  constexpr int ACH = C::KC / C::VEC;  // 16-byte chunks of a slot's row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  __shared__ int rp[kItemRows + 1];
 
-  const int4 task = __ldg(schedule + blockIdx.x);
-  const int b0 = blockIdx.y * kTile;
-  const int t = threadIdx.x, lane = t % 32, w = t / 32;
-  const int row0 = (w / S::KS) * S::R, col0 = (w % S::KS) * S::JC;
+  const int4 item = __ldg(items + blockIdx.x);
+  const int r0 = item.x, nrows = item.y - item.x, ro = item.z;
+  const int b0 = blockIdx.y * kBatchTile;
+  const int t = threadIdx.x;
+  const int kg = t / C::GS, u = t % C::GS;
+  const int rg = u / C::IG, ig = u % C::IG;
 
-  T acc[S::R];
-#pragma unroll
-  for (int r = 0; r < S::R; ++r) acc[r] = T(0);
+  for (int i = t; i <= nrows; i += C::THREADS) rp[i] = __ldg(row_ptr + r0 + i);
+  __syncthreads();
 
-  for (int p0 = task.y; p0 < task.z; p0 += S::G) {
-    const int g = min(S::G, task.z - p0);
-    __syncthreads();  // the previous round's reads of xs are done
-    for (int e = t; e < g * kTile * CPR; e += THREADS) {
-      const int q = e % CPR, bb = (e / CPR) % kTile, k = e / (CPR * kTile);
-      V v = VT::zero();
+  // Rows without blocks: zeros.
+  for (int r = 0; r < nrows; ++r) {
+    if (rp[r] != rp[r + 1]) continue;
+    T* yr = y + static_cast<size_t>(r0 + r) * BM + ro;
+    for (int e = t; e < kBatchTile * (C::RT / C::VEC); e += C::THREADS) {
+      const int q = e % (C::RT / C::VEC), bb = e / (C::RT / C::VEC);
       if (b0 + bb < batch) {
-        const size_t col = static_cast<size_t>(__ldg(block_cols + p0 + k));
-        v = __ldg(reinterpret_cast<const V*>(
-            x + static_cast<size_t>(b0 + bb) * n + col * BN + q * S::VEC));
+        *reinterpret_cast<V*>(yr + static_cast<size_t>(b0 + bb) * m +
+                              q * C::VEC) = VT::zero();
       }
-      *reinterpret_cast<V*>(xs + k * S::TILE + bb * S::XS + q * S::VEC) = v;
     }
-    __syncthreads();
-    for (int k = 0; k < g; ++k) {
-      const T* a = data + static_cast<size_t>(p0 + k) * BM * BN +
-                   static_cast<size_t>(row0) * BN + col0;
-      const T* xr = xs + k * S::TILE + lane * S::XS + col0;
-#pragma unroll 4
-      for (int j = 0; j < S::JC; j += S::VEC) {
-        const V xv = *reinterpret_cast<const V*>(xr + j);
+  }
+
+  const int p_end = rp[nrows];
+  // Blocks of the step at c: 1, or for narrow blocks up to G of its row.
+  auto count = [&](const Cursor& c) {
+    return C::G == 1 ? 1 : min(C::G, rp[c.r + 1] - c.p);
+  };
+  // Moves c past its step; true when that step ended c's row.
+  auto advance = [&](Cursor& c) {
+    if (C::STEPS > 1) {
+      c.kc += C::KC;
+      if (c.kc < BN) return false;
+      c.kc = 0;
+      c.p += 1;
+    } else {
+      c.p += count(c);
+    }
+    if (c.p < rp[c.r + 1]) return false;
+    while (c.r < nrows - 1 && rp[c.r + 1] <= c.p) ++c.r;
+    return true;
+  };
+  // Stage s gets the step at c: G slots, those past its row zero-filled
+  // (their products add exact zeros).  The loops have fixed trip counts
+  // and no branch around a copy (an address past the row is clamped), so
+  // every copy of a step is in flight at once.
+  auto issue = [&](int s, const Cursor& c) {
+    T* st = smem + s * C::STAGE;
+    const int g_n = count(c);
+    const T* blk = data + static_cast<size_t>(c.p) * BM * BN +
+                   static_cast<size_t>(ro) * BN + c.kc;
+    constexpr int A_CH = C::G * C::RT * ACH;
 #pragma unroll
-        for (int r = 0; r < S::R; ++r) {
-          const V av = __ldg(reinterpret_cast<const V*>(a + r * BN + j));
-          acc[r] = VT::dot(av, xv, acc[r]);
+    for (int i = 0; i < (A_CH + C::THREADS - 1) / C::THREADS; ++i) {
+      const int e = t + i * C::THREADS;
+      if (A_CH % C::THREADS == 0 || e < A_CH) {
+        const int q = e % ACH, row = (e / ACH) % C::RT;
+        const int g = e / (ACH * C::RT);
+        const bool valid = g < g_n;
+        cp_async16(st + g * C::SLOT + row * C::XS + q * C::VEC,
+                   valid ? blk + static_cast<size_t>(g) * BM * BN +
+                               row * BN + q * C::VEC
+                         : data,
+                   valid);
+      }
+    }
+    constexpr int X_CH = C::G * kBatchTile * ACH;
+    const T* xc = x + static_cast<size_t>(c.kc);
+    const int col0 = __ldg(block_cols + c.p);
+#pragma unroll
+    for (int i = 0; i < (X_CH + C::THREADS - 1) / C::THREADS; ++i) {
+      const int e = t + i * C::THREADS;
+      if (X_CH % C::THREADS == 0 || e < X_CH) {
+        const int q = e % ACH, bb = (e / ACH) % kBatchTile;
+        const int g = e / (ACH * kBatchTile);
+        const bool valid = g < g_n && b0 + bb < batch;
+        const int col =
+            C::G == 1 ? col0 : __ldg(block_cols + c.p + min(g, g_n - 1));
+        cp_async16(st + g * C::SLOT + C::A_SLOT + bb * C::XS + q * C::VEC,
+                   valid ? xc + static_cast<size_t>(b0 + bb) * n +
+                               static_cast<size_t>(col) * BN + q * C::VEC
+                         : x,
+                   valid);
+      }
+    }
+  };
+
+  T acc[kRows][C::INST];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < C::INST; ++j) acc[i][j] = T(0);
+  }
+
+  Cursor prod{rp[0], 0, 0};
+  while (prod.r < nrows - 1 && rp[prod.r + 1] <= prod.p) ++prod.r;
+  Cursor cons = prod;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (prod.p < p_end) {
+      issue(s, prod);
+      advance(prod);
+    }
+    cp_async_commit();
+  }
+
+  int s_cons = 0, s_prod = kStages - 1;
+  while (cons.p < p_end) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s_cons has landed; s_prod's readers are done
+    if (prod.p < p_end) {
+      issue(s_prod, prod);
+      advance(prod);
+    }
+    cp_async_commit();
+    s_prod = s_prod + 1 == kStages ? 0 : s_prod + 1;
+
+    const T* st = smem + s_cons * C::STAGE;
+#pragma unroll kUnroll
+    for (int c = 0; c < C::CW; c += C::VEC) {
+      const int col = kg * C::CW + c;
+      const int g = col / C::KC, k = col % C::KC;
+      const T* sa = st + g * C::SLOT + rg * kRows * C::XS + k;
+      const T* sx = st + g * C::SLOT + C::A_SLOT + ig * C::XS + k;
+      V a[kRows], xv[C::INST];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        a[i] = *reinterpret_cast<const V*>(sa + i * C::XS);
+      }
+#pragma unroll
+      for (int j = 0; j < C::INST; ++j) {
+        xv[j] = *reinterpret_cast<const V*>(sx + j * C::IG * C::XS);
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int j = 0; j < C::INST; ++j) {
+          acc[i][j] = VT::dot(a[i], xv[j], acc[i][j]);
         }
       }
     }
-  }
+    s_cons = s_cons + 1 == kStages ? 0 : s_cons + 1;
 
-  // Column parts to shared memory, then each Y entry summed in part order.
-  __syncthreads();
-  T* part = reinterpret_cast<T*>(smem);
+    const int row = cons.r;
+    if (!advance(cons)) continue;
+    // The row is done: its tile goes to Y.
+    T* yr = y + static_cast<size_t>(r0 + row) * BM + ro;
+    if (C::KS == 1) {
 #pragma unroll
-  for (int r = 0; r < S::R; ++r) {
-    part[((w % S::KS) * BM + row0 + r) * S::RS + lane] = acc[r];
-  }
-  __syncthreads();
-  T* yr = y + static_cast<size_t>(task.x) * BM;
-  for (int e = t; e < BM * kTile; e += THREADS) {
-    const int i = e % BM, bb = e / BM;
-    T sum = part[i * S::RS + bb];
+      for (int j = 0; j < C::INST; ++j) {
+        const int b = b0 + ig + j * C::IG;
+        if (b < batch) {
 #pragma unroll
-    for (int k = 1; k < S::KS; ++k) sum += part[(k * BM + i) * S::RS + bb];
-    if (b0 + bb < batch) yr[static_cast<size_t>(b0 + bb) * m + i] = sum;
+          for (int i = 0; i < kRows; i += 4) {
+            VT::store4(yr + static_cast<size_t>(b) * m + rg * kRows + i,
+                       acc[i][j], acc[i + 1][j], acc[i + 2][j],
+                       acc[i + 3][j]);
+          }
+        }
+      }
+    } else {
+      T* part = smem + kStages * C::STAGE;
+#pragma unroll
+      for (int j = 0; j < C::INST; ++j) {
+#pragma unroll
+        for (int i = 0; i < kRows; i += 4) {
+          VT::store4(part + (kg * kBatchTile + ig + j * C::IG) * C::PS +
+                         rg * kRows + i,
+                     acc[i][j], acc[i + 1][j], acc[i + 2][j], acc[i + 3][j]);
+        }
+      }
+      __syncthreads();
+      for (int e = t; e < C::RT * kBatchTile; e += C::THREADS) {
+        const int i = e % C::RT, bb = e / C::RT;
+        T sum = part[bb * C::PS + i];
+#pragma unroll
+        for (int k = 1; k < C::KS; ++k) {
+          sum += part[(k * kBatchTile + bb) * C::PS + i];
+        }
+        if (b0 + bb < batch) yr[static_cast<size_t>(b0 + bb) * m + i] = sum;
+      }
+      // part is written again only after the next step's __syncthreads.
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < C::INST; ++j) acc[i][j] = T(0);
+    }
   }
+  cp_async_wait<0>();
+}
+
+template <class T, int BM, int BN>
+int launch_shape(const int4* items, const int32_t* row_ptr,
+                 const int32_t* block_cols, const T* data, const T* x, T* y,
+                 int num_items, int batch, int n, int m,
+                 cudaStream_t stream) {
+  using C = Cfg<T, BM, BN>;
+  auto kernel = block_spmm_kernel<T, BM, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(num_items, (batch + kBatchTile - 1) / kBatchTile);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(items, row_ptr, block_cols,
+                                                data, x, y, batch, n, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
-int launch(const int4* schedule, const int32_t* block_cols, const T* data,
-           const T* x, T* y, int num_block_rows, int bm, int bn, int batch,
-           int n, int m, int device, cudaStream_t stream) {
-  if (num_block_rows < 0 || batch < 0 || n < 0 || m != num_block_rows * bm) {
+int launch(const int4* items, const int32_t* row_ptr,
+           const int32_t* block_cols, const T* data, const T* x, T* y,
+           int num_items, int num_block_rows, int bm, int bn, int batch, int n,
+           int m, int device, cudaStream_t stream) {
+  if (num_items < 0 || num_block_rows < 0 || batch < 0 || n < 0 ||
+      m != num_block_rows * bm) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(schedule) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(items) % 16 != 0 ||
       (static_cast<size_t>(n) * sizeof(T)) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  if (num_block_rows == 0 || batch == 0) return 0;
+  if (num_items == 0 || batch == 0) return 0;
   // This library's CUDA runtime keeps its own current device: launch on
   // the card that holds the tensors.
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid(num_block_rows, (batch + kTile - 1) / kTile);
-#define OTT_BLOCK_SPMM_CASE(BM_, BN_)                                       \
-  if (bm == BM_ && bn == BN_) {                                             \
-    block_spmm_kernel<T, BM_, BN_>                                          \
-        <<<grid, Shape<T, BM_, BN_>::WARPS * 32, 0, stream>>>(              \
-            schedule, block_cols, data, x, y, batch, n, m);                 \
-    return static_cast<int>(cudaGetLastError());                            \
+#define OTT_BLOCK_SPMM_CASE(BM_, BN_)                                        \
+  if (bm == BM_ && bn == BN_) {                                              \
+    return launch_shape<T, BM_, BN_>(items, row_ptr, block_cols, data, x, y, \
+                                     num_items, batch, n, m, stream);        \
   }
   OTT_BLOCK_SPMM_CASE(8, 8)
   OTT_BLOCK_SPMM_CASE(8, 32)
@@ -215,27 +431,30 @@ int launch(const int4* schedule, const int32_t* block_cols, const T* data,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the launch's CUDA
-// error: 0 when the kernel was launched (or there was nothing to do).  data,
-// x and the schedule must be 16-byte aligned, and so must each row of x
-// (n * sizeof(T) a multiple of 16); m is num_block_rows * bm.
+// error: 0 when the kernel was launched (or there was nothing to do).
+// items (make_layout's spmm_schedule, int32 [num_items, 4]), data, x and y
+// must be 16-byte aligned, and so must each row of x (n * sizeof(T) a
+// multiple of 16); m is num_block_rows * bm.
 extern "C" {
 
-int block_spmm_exact_f32(const void* schedule, const int32_t* block_cols,
-                         const float* data, const float* x, float* y,
+int block_spmm_exact_f32(const void* items, const int32_t* row_ptr,
+                         const int32_t* block_cols, const float* data,
+                         const float* x, float* y, int num_items,
                          int num_block_rows, int bm, int bn, int batch, int n,
                          int m, int device, void* stream) {
-  return launch<float>(static_cast<const int4*>(schedule), block_cols, data,
-                       x, y, num_block_rows, bm, bn, batch, n, m, device,
-                       static_cast<cudaStream_t>(stream));
+  return launch<float>(static_cast<const int4*>(items), row_ptr, block_cols,
+                       data, x, y, num_items, num_block_rows, bm, bn, batch,
+                       n, m, device, static_cast<cudaStream_t>(stream));
 }
 
-int block_spmm_exact_f64(const void* schedule, const int32_t* block_cols,
-                         const double* data, const double* x, double* y,
+int block_spmm_exact_f64(const void* items, const int32_t* row_ptr,
+                         const int32_t* block_cols, const double* data,
+                         const double* x, double* y, int num_items,
                          int num_block_rows, int bm, int bn, int batch, int n,
                          int m, int device, void* stream) {
-  return launch<double>(static_cast<const int4*>(schedule), block_cols, data,
-                        x, y, num_block_rows, bm, bn, batch, n, m, device,
-                        static_cast<cudaStream_t>(stream));
+  return launch<double>(static_cast<const int4*>(items), row_ptr, block_cols,
+                        data, x, y, num_items, num_block_rows, bm, bn, batch,
+                        n, m, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -44,6 +44,15 @@ KERNEL_BLOCK_DIMS = (8, 32, 128)
 # block of 256 threads.
 WARP_BLOCK_BYTES = 4096
 WARP_ROW_BYTES = 65536
+# The SpMM's work items (``spmm_schedule``, csrc/block_spmm.cu): an item
+# takes at most SPMM_ROWS rows of each of its blocks, so a block-row of
+# taller blocks is split into row slices, one item each.  Block-rows of
+# blocks at most SPMM_ROWS tall are grouped, consecutive, into items of at
+# most SPMM_ITEM_ENTRIES stored entries (a longer row is an item of its
+# own) and at most SPMM_ITEM_ROWS block-rows.
+SPMM_ROWS = 32
+SPMM_ITEM_ENTRIES = 4 * 1024
+SPMM_ITEM_ROWS = 64
 
 
 class BlockRowLayout(NamedTuple):
@@ -58,6 +67,7 @@ class BlockRowLayout(NamedTuple):
     schedule: torch.Tensor  # int32 [num_block_rows, 4]: long, then short
     num_long: int  # the first num_long rows of the schedule are long
     num_block_cols: int  # x has num_block_cols * bn entries
+    spmm_schedule: torch.Tensor  # int32 [num_items, 4]: the SpMM's items
 
     @property
     def block_shape(self):
@@ -99,6 +109,57 @@ def schedule_table(order: np.ndarray, row_ptr: np.ndarray) -> np.ndarray:
     return table
 
 
+def spmm_schedule(counts: np.ndarray, block_shape) -> np.ndarray:
+    """The SpMM kernel's work items, from the block-rows' lengths in blocks
+    (``counts``) and the block shape: int32 [num_items, 4] of (first
+    block-row, end block-row, first row within the blocks, 0).  An item
+    covers every row of its block-rows from its first row on, at most
+    ``SPMM_ROWS`` of them, and all their blocks; every row of the matrix
+    lies in exactly one item.
+
+    - Blocks taller than ``SPMM_ROWS``: one item per block-row and slice of
+      ``SPMM_ROWS`` rows, so that a long row of tall blocks keeps several
+      SMs busy; the slices of a row read its blocks' x segments again, from
+      L2.
+    - Otherwise consecutive block-rows are grouped: an item closes before
+      the row that would take it past ``SPMM_ITEM_ENTRIES`` stored entries
+      or ``SPMM_ITEM_ROWS`` rows, so each item pays one start-up for
+      several short rows.
+
+    Items are ordered by their blocks, most first (a stable sort, so the
+    table is a function of ``counts`` and the block shape), so that the
+    longest start first."""
+    counts = np.asarray(counts, dtype=np.int64)
+    bm, bn = block_shape
+    rows = min(bm, SPMM_ROWS)
+    if counts.size == 0:
+        return np.zeros((0, 4), dtype=np.int32)
+    if rows < bm:
+        slices = np.arange(0, bm, rows)
+        first = np.repeat(np.arange(counts.size), slices.size)
+        items = np.stack([first, first + 1, np.tile(slices, counts.size)], 1)
+        blocks = counts[first]
+    else:
+        limit = max(1, SPMM_ITEM_ENTRIES // (bm * bn))
+        starts, blocks, held, start = [], [], 0, 0
+        for r, c in enumerate(counts.tolist()):
+            if r > start and (held + c > limit
+                              or r - start == SPMM_ITEM_ROWS):
+                starts.append(start)
+                blocks.append(held)
+                start, held = r, 0
+            held += c
+        starts.append(start)
+        blocks.append(held)
+        first = np.asarray(starts, dtype=np.int64)
+        end = np.append(first[1:], counts.size)
+        items = np.stack([first, end, np.zeros_like(first)], 1)
+        blocks = np.asarray(blocks, dtype=np.int64)
+    table = np.zeros((len(items), 4), dtype=np.int32)
+    table[:, :3] = items[np.argsort(-blocks, kind="stable")]
+    return table
+
+
 def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
                 block_cols: torch.Tensor, padded_shape, hi: bool = False,
                 ) -> BlockRowLayout:
@@ -125,6 +186,8 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
                                  device=data.device),
         num_long=num_long,
         num_block_cols=padded_shape[1] // bn,
+        spmm_schedule=torch.as_tensor(spmm_schedule(counts, (bm, bn)),
+                                      device=data.device),
     )
 
 
@@ -298,16 +361,23 @@ def tiled_matmat(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
     else:
         raise TypeError(f"no exact kernel for {t.data.dtype}")
     _check(t, t.data, x, t.data.dtype, batched=True)
+    items = t.spmm_schedule
+    for name, v in (("spmm_schedule", items), ("row_ptr", t.row_ptr)):
+        if v.device != x.device or v.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 on {x.device}")
+    if items.data_ptr() % 16:
+        raise ValueError("spmm_schedule must be 16-byte aligned")
     bm, bn = t.block_shape
     batch, m = int(x.shape[0]), t.num_block_rows * bm
     y = torch.empty(batch, m, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ctypes.c_void_p(t.schedule.data_ptr()),
+    err = fn(ctypes.c_void_p(items.data_ptr()),
+             ctypes.c_void_p(t.row_ptr.data_ptr()),
              ctypes.c_void_p(t.block_cols.data_ptr()),
              ctypes.c_void_p(t.data.data_ptr()),
              ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-             t.num_block_rows, bm, bn, batch, int(x.shape[1]), m,
-             x.device.index, ctypes.c_void_p(stream))
+             int(items.shape[0]), t.num_block_rows, bm, bn, batch,
+             int(x.shape[1]), m, x.device.index, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     tiled_matmat.launches += 1

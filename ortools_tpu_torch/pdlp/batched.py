@@ -162,9 +162,14 @@ class BatchSolver:
     def solve(self, var_lb_batch: np.ndarray, var_ub_batch: np.ndarray,
               warm_start_x: Optional[np.ndarray] = None,
               warm_start_y: Optional[np.ndarray] = None,
-              deadline: float = math.inf) -> BatchSolveResult:
-        """``solve_batch``'s contract on this solver's problem."""
+              deadline: float = math.inf,
+              iteration_limit: Optional[int] = None) -> BatchSolveResult:
+        """``solve_batch``'s contract on this solver's problem.  The device
+        code does not read the iteration limit, so a call may set its own
+        (``iteration_limit``; by default the solver's params')."""
         params = self.params
+        if iteration_limit is None:
+            iteration_limit = params.iteration_limit
         qp = self.qp
         bsz, n = var_lb_batch.shape
         if (bsz != self.batch_size or var_ub_batch.shape != (bsz, n)
@@ -215,7 +220,7 @@ class BatchSolver:
             for i in np.nonzero(mask)[0]:
                 best_stats[i] = {k: float(v[i]) for k, v in src.items()}
 
-        while iterations < params.iteration_limit and not done.all():
+        while iterations < iteration_limit and not done.all():
             if time.perf_counter() > deadline:
                 break
             stats, host = majors.major(False)

@@ -642,3 +642,37 @@ def test_node_backend_second_call_gives_a_fresh_backends_result():
         lbs[2:], ubs[2:], warm_x=wx, warm_y=wy)
     _assert_nodes_equal(second, fresh)
     assert second.optimal.sum() == 3 and second.primal_infeasible[2]
+
+
+def test_node_backend_keeps_its_solver_across_iteration_limits():
+    """The branch-and-bound raises only ``iteration_limit`` (×4 per retry):
+    the backend keeps its ``BatchSolver``; the raised call is bit for bit
+    a fresh backend's on the raised params, and JAX's backend's on them."""
+    qp, lbs, ubs = _random_batch()
+    qp = qp.as_minimization()
+    tqp = port_qp(qp)
+    low = TParams(dtype=torch.float64, iteration_limit=10_000)
+    high = dataclasses.replace(low, iteration_limit=4 * low.iteration_limit)
+    kept = TNodeBackend(tqp, low, 6, device="cpu", v0=jax_v0(128))
+    kept.solve(lbs, ubs)
+    solver = kept._solver
+    raised = kept.solve(lbs, ubs, lp_params=high)
+    assert kept._solver is solver
+    assert solver.params == low
+    fresh = TNodeBackend(tqp, high, 6, device="cpu", v0=jax_v0(128))
+    _assert_nodes_equal(raised, fresh.solve(lbs, ubs))
+    # another field than the limit builds a new solver
+    kept.solve(lbs, ubs, lp_params=dataclasses.replace(
+        high, termination_check_frequency=32))
+    assert kept._solver is not solver
+    jr = JNodeBackend(qp, JParams(dtype=jnp.float64, iteration_limit=40_000),
+                      6).solve(lbs, ubs)
+    np.testing.assert_array_equal(raised.optimal, jr.optimal)
+    np.testing.assert_array_equal(raised.primal_infeasible,
+                                  jr.primal_infeasible)
+    assert bool(raised.primal_infeasible[4])
+    for i in np.nonzero(raised.optimal)[0]:
+        _, ref = highs(qp, lbs[i], ubs[i])
+        assert raised.dual_bound[i] <= ref + 1e-4 * (1 + abs(ref))
+        np.testing.assert_allclose(raised.primal_solution[i],
+                                   jr.primal_solution[i], atol=1e-3)

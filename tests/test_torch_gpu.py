@@ -150,12 +150,13 @@ def test_misaligned_input_raises_on_card(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,n,nblocks,block_shape", GPU_SHAPES)
 @pytest.mark.parametrize("transpose", [False, True])
-@pytest.mark.parametrize("batch", [1, 8, 40])
+@pytest.mark.parametrize("batch", [1, 8, 40, 64])
 def test_spmm_kernel_matches_plain_on_card(cuda, m, n, nblocks, block_shape,
                                            transpose, batch):
     """Y = X Aᵀ for X [B, N]: within 1e-5·(1+‖Y‖∞) of the plain version
-    in f32 and 1e-12 in f64; a repeated launch is bit-identical; B = 40
-    spans two tiles of 32 instances, one partly filled."""
+    in f32 and 1e-12 in f64; a repeated launch is bit-identical; B = 1, 8
+    and 40 fill part of the kernel's tile of 64 instances, B = 64 (the
+    bench's batch) all of it."""
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         mat = _gpu_pair(m, n, nblocks, block_shape, dtype, cuda)
         if transpose:

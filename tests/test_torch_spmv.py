@@ -267,6 +267,119 @@ def test_plain_spmm_matches_jax_block_matmat(block_shape, batch):
                                atol=1e-12 * scale)
 
 
+def _bench_counts():
+    """Block-row lengths of the bench LP's A and Aᵀ (see
+    test_row_schedule_of_the_bench_lp)."""
+    cells = np.random.default_rng(0).choice(2048 * 128, size=4096,
+                                            replace=False)
+    return (np.bincount(cells // 128, minlength=2048),
+            np.bincount(cells % 128, minlength=128))
+
+
+def _skewed_counts():
+    """One block-row of 96 blocks, every fourth of the others one block,
+    the rest empty (chip_smoke.py's skewed matrix)."""
+    counts = np.zeros(256, np.int64)
+    counts[0] = 96
+    counts[1::4] = 1
+    return counts
+
+
+def _assert_spmm_items(table, counts, block_shape):
+    """Every row of every block-row lies in exactly one item, whose blocks
+    are its block-rows' blocks in ascending order; each item within its
+    limits."""
+    bm, bn = block_shape
+    rows = min(bm, T.SPMM_ROWS)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)])
+    assert table.dtype == np.int32 and table.shape[1] == 4
+    assert not table[:, 3].any()
+    covered = np.zeros((counts.size, bm), np.int64)
+    for r0, r1, ro, _ in table:
+        assert 0 <= r0 < r1 <= counts.size and ro % rows == 0
+        covered[r0:r1, ro:ro + rows] += 1
+        # the item's blocks: row_ptr[r0] .. row_ptr[r1], each row's in turn
+        assert np.all(np.diff(row_ptr[r0:r1 + 1]) == counts[r0:r1])
+        blocks = int(counts[r0:r1].sum())
+        if rows < bm:
+            assert r1 - r0 == 1
+        else:
+            assert r1 - r0 <= T.SPMM_ITEM_ROWS
+            assert (r1 - r0 == 1
+                    or blocks * bm * bn <= T.SPMM_ITEM_ENTRIES), (r0, r1)
+    np.testing.assert_array_equal(covered, 1)
+    # longest first
+    sizes = np.array([counts[r0:r1].sum() for r0, r1, _, _ in table])
+    assert np.all(np.diff(sizes) <= 0)
+
+
+@pytest.mark.parametrize("block_shape", SPMM_SHAPES,
+                         ids=[f"{bm}x{bn}" for bm, bn in SPMM_SHAPES])
+@pytest.mark.parametrize("which", ["pair", "bench", "skewed"])
+def test_spmm_schedule_covers_every_block_once(block_shape, which):
+    """The SpMM's work items (``spmm_schedule``) on the ``_spmm_pair``
+    matrices, the bench LP's row lengths (A and Aᵀ) and a skewed matrix:
+    coverage, order within rows, limits; the layout's table is the
+    function's."""
+    if which == "pair":
+        _, _, tm = _spmm_pair(block_shape, seed=11, density=0.1)
+        lay = tm.with_tiled().tiled
+        counts = _row_lengths(lay)
+        table = lay.spmm_schedule.numpy()
+        np.testing.assert_array_equal(
+            table, T.spmm_schedule(counts, block_shape))
+        assert lay.spmm_schedule.dtype == torch.int32
+        _assert_spmm_items(table, counts, block_shape)
+        return
+    if which == "bench":
+        cases = _bench_counts()
+    else:
+        cases = (_skewed_counts(), np.zeros(7, np.int64))
+    for counts in cases:
+        table = T.spmm_schedule(counts, block_shape)
+        _assert_spmm_items(table, counts, block_shape)
+
+
+def test_spmm_schedule_of_the_bench_lp():
+    """A (8x128): consecutive rows grouped into items of at most
+    SPMM_ITEM_ENTRIES / 1024 blocks (a longer row alone); Aᵀ (128x8): four
+    32-row slices of each of its 128 rows, longest rows first."""
+    counts_a, counts_at = _bench_counts()
+    limit = T.SPMM_ITEM_ENTRIES // (8 * 128)
+    table = T.spmm_schedule(counts_a, (8, 128))
+    sizes = np.array([counts_a[r0:r1].sum() for r0, r1, _, _ in table])
+    assert sizes.max() == counts_a.max() and counts_a.max() > limit
+    assert np.all((sizes <= limit) | (table[:, 1] - table[:, 0] == 1))
+    assert 4096 / limit <= len(table) < 2048
+    table = T.spmm_schedule(counts_at, (128, 8))
+    assert len(table) == 4 * 128
+    np.testing.assert_array_equal(table[:4, 2], [0, 32, 64, 96])
+    assert counts_at[table[0, 0]] == counts_at.max()
+
+
+def test_spmm_schedule_is_a_function_of_row_lengths():
+    """Two matrices with the same block-row lengths but other columns and
+    values get the same table; so does a second layout of one matrix."""
+    rng = np.random.default_rng(4)
+    counts = rng.integers(0, 12, 200)
+    mats = []
+    for seed in (1, 2):
+        g = np.random.default_rng(seed)
+        rows = np.repeat(np.arange(counts.size), counts)
+        cols = np.concatenate([g.choice(40, c, replace=False)
+                               for c in counts])
+        data = torch.tensor(g.standard_normal((rows.size, 8, 32)))
+        mats.append(T.make_layout(
+            data, torch.tensor(rows, dtype=torch.int32),
+            torch.tensor(cols, dtype=torch.int32), (counts.size * 8, 40 * 32)))
+    assert torch.equal(mats[0].spmm_schedule, mats[1].spmm_schedule)
+    np.testing.assert_array_equal(mats[0].spmm_schedule.numpy(),
+                                  T.spmm_schedule(counts, (8, 32)))
+    # the limits follow the block shape, not the matrix's dtype or values
+    assert np.array_equal(T.spmm_schedule(counts, (8, 32)),
+                          T.spmm_schedule(counts.copy(), (8, 32)))
+
+
 @pytest.mark.parametrize("block_shape", [(8, 128), (128, 8), (32, 32)])
 def test_batched_matvec_is_the_rows_products(block_shape):
     """``matvec`` of a [B, N] input is, row for row, the 1-D product of
