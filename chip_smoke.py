@@ -9,7 +9,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 
 1. Environment: the card's name and power limit, CUDA, nvcc, triton.
 2. Build the CUDA kernels from ``ortools_tpu_torch/ops/csrc`` and print
-   what ``-Xptxas -v`` says of each (registers, shared memory, spills).
+   what ``-Xptxas -v`` says of each (registers, shared memory, spills);
+   an SpMM instantiation that spills fails the run.
 3. Each kernel against its plain PyTorch version on the card: A (8x128)
    and its transpose (128x8) at the bench shape, every other block shape
    the kernels take and its transpose at a smaller size, a skewed matrix
@@ -115,7 +116,7 @@ KERNELS = {
 SPMM = dict(
     name="block_spmm_exact", route="cuda",
     source="ortools_tpu_torch/ops/csrc/block_spmm.cu",
-    replaces="ortools_tpu/ops/block_sparse.py:284",
+    replaces="ortools_tpu/ops/block_sparse.py:285",
     wrapper=tiled_spmv.tiled_matmat, plain=tiled_spmv.tiled_matmat_plain)
 BATCH = 64  # bench.py's batched configuration (bench.py:255-293)
 BATCH_MAJORS = 8
@@ -1045,6 +1046,20 @@ def batched_rates(backend) -> None:
     device_profile(majors, {"exact": major_s}, streams=(("exact", False),))
 
 
+def spmm_spills(report: str) -> list:
+    """The SpMM kernel instantiations that ``-Xptxas -v`` reports with
+    spill stores (each entry line is followed by its spill line)."""
+    spilled, entry = [], None
+    for line in report.splitlines():
+        if "block_spmm_kernel" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "spill stores" in line:
+            if not line.strip().split()[4] == "0":
+                spilled.append(entry)
+            entry = None
+    return spilled
+
+
 def spmm_bound(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
     """Least time of one SpMM at B = ``BATCH``: the blocks, X and Y once
     each over the memory rate, against 2 flops per stored entry per
@@ -1132,6 +1147,8 @@ def main() -> int:
         _build.library(name)
     print(report.strip())
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
+    spilled = spmm_spills(report)
+    require(not spilled, f"SpMM instantiations spill registers: {spilled}")
 
     phase("3. kernels against their plain versions on the card")
     bench_qp = block_random_lp(**BENCH)

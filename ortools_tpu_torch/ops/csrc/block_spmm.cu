@@ -13,40 +13,44 @@
 // product.  It is not a Pallas kernel; the port runs no product on a card
 // except through its own kernels.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores,
-// at 700 W): the blocks once plus X and Y once each, against 2 flops per
-// stored entry per instance.  At the bench shape (16384^2, 4096 blocks of
-// 8x128) and B = 64 in f32: 25.2 MB, 7.5 us; 0.54 GFLOP, 8.0 us.  A
-// row-wise kernel also gathers each block's x segment for every instance
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 and 34 f64 outside the
+// tensor cores, at 700 W): the blocks once plus X and Y once each, against
+// 2 flops per stored entry per instance.  At the bench shape (16384^2, 4096
+// blocks of 8x128) and B = 64 in f32: 25.2 MB, 7.5 us; 0.54 GFLOP, 8.0 us.
+// A row-wise kernel also gathers each block's x segment for every instance
 // through L2: nb * bn * B * 4 bytes, 134 MB for A (8x128 blocks) and 8.4 MB
-// for A^T (128x8) at that shape.  So A is held by the L2 gather, not by the
-// bound, and A^T by the f32 FMA rate.
+// for A^T (128x8) at that shape, which the bound does not count.
 //
 // The design (it replaces a first kernel that took one block-row and 32
 // instances per thread block, staged x, then computed with nothing in
 // flight, and summed 8 column parts per row: 63-70 us at that shape):
-// - Work items (the schedule): an item takes up to 32 rows of each of its
-//   blocks and 64 instances (gridDim.y tiles of the batch).  Block-rows of
-//   blocks at most 32 tall are grouped into items of several consecutive
-//   rows (about 8192 stored entries), so that each item pays one start-up
-//   for several short rows; taller blocks are split into slices of 32 rows,
-//   one item per row and slice, so that a long row of tall blocks keeps
-//   several SMs busy.  Items come longest first.
-// - Register tiles: each thread keeps a 4-row x 4-instance tile of sums.
-//   Per 16 bytes of k it loads 4 A vectors and 4 x vectors from shared
-//   memory and does 64 (f32) or 32 (f64) FMAs.  A warp spans 2 row groups
-//   and 16 instance groups (instances ig + 16 j), so its A loads are 2
-//   broadcast addresses and its x loads 16 addresses in distinct bank groups
-//   (rows padded by 16 bytes).
-// - Where one block-row's tile has fewer threads' worth of work than the
+// - Work items (tiled_spmv.py::spmm_schedule): an item takes up to 32 rows
+//   of each of its blocks and 64 instances (gridDim.y tiles the batch).
+//   Block-rows of blocks at most 32 tall are grouped into items of several
+//   consecutive rows (at most 2048 stored entries, or one longer row), so
+//   that each item pays one start-up for several short rows; taller blocks
+//   are split into slices of 32 rows, one item per row and slice, so that
+//   a long row of tall blocks keeps several SMs busy.  Items come longest
+//   first.
+// - Register tiles: each thread keeps 4 rows x 8 instances of sums in f32
+//   (4 x 4 in f64).  Per 16 bytes of k it loads 4 A vectors and 8 (4) x
+//   vectors from shared memory for 128 (32) FMAs.  Instances are strided
+//   (ig + IG j) and rows padded by 16 bytes, so that a warp's x loads hit
+//   distinct bank groups and its A loads are few broadcast addresses.
+// - Where a block-row's tile has fewer threads' worth of work than the
 //   thread block (8-row blocks), the thread block splits k KS ways; the KS
-//   partial tiles meet in shared memory at the end of each row and are
-//   summed in a fixed order.
-// - Pipelined staging: a ring of 3 stages in dynamic shared memory, each
-//   holding a k-slice of one block (or several narrow blocks of one row):
-//   its rows of A and the 64 instances' x segments, copied with cp.async
-//   (16 bytes a thread, L2 only), two stages in flight while the third is
-//   multiplied.
+//   partial tiles meet at the end of each row in the stage just consumed
+//   and are summed in a fixed order.
+// - Pipelined staging: a ring of 2 stages in dynamic shared memory, each a
+//   k-slice of one block (or several narrow blocks of one row): its rows
+//   of A and the 64 instances' x segments, copied with cp.async (16 bytes
+//   a thread, cached in L2 only) while the other stage is multiplied.  A
+//   third stage, larger stages and a bulk-copy (TMA) ring for x each lost:
+//   they cost resident thread blocks (PERF.md).
+// What holds it back (PERF.md): for 8-row blocks the short steps (2 chunks
+// of 16 bytes per thread between barriers) and the x gather, which alone
+// adds about a third; for 128-row blocks the FMA and shared-memory issue
+// rate.
 //
 // Deterministic output: each Y entry is written by exactly one thread, each
 // thread sums its k range in a fixed order, and the partial tiles meet in a
@@ -60,16 +64,16 @@ namespace {
 
 constexpr int kBatchTile = 64;  // instances of a work item
 constexpr int kRows = 4;        // rows of a thread's register tile
-constexpr int kInstF32 = 8;     // instances of a thread's register tile
-constexpr int kInstF64 = 4;     // (f32, f64)
+constexpr int kInstF32 = 8;     // instances of a thread's register tile, f32
+constexpr int kInstF64 = 4;     // and f64
 constexpr int kMaxRows = 32;    // rows of its blocks an item takes (SPMM_ROWS)
-constexpr int kItemRows = 64;   // block-rows of an item, at most
-constexpr int kStages = 2;
+constexpr int kItemRows = 64;   // block-rows of an item (SPMM_ITEM_ROWS)
+constexpr int kStages = 2;      // of the ring
+constexpr int kSlotBytes = 256;     // of a row of a stage's slot, at most
 constexpr int kStageBytes = 20480;  // of a stage of narrow blocks, at most
-constexpr int kMinThreads = 128;
-constexpr int kSlotBytes = 256;     // of a row of a slot, at most
-constexpr int kMinBlocks = 1;       // resident thread blocks an SM must fit
-constexpr int kUnroll = 1;          // 16-byte k chunks multiplied per round
+constexpr int kMinThreads = 128;    // of a thread block
+constexpr int kMinBlocks = 1;       // __launch_bounds__: no register cap
+constexpr int kUnroll = 1;          // 16-byte k chunks per loop round
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -127,7 +131,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
 // The tiling of one (bm x bn) block shape.
 template <class T, int BM, int BN>
 struct Cfg {
@@ -142,6 +145,7 @@ struct Cfg {
   static constexpr int KS = THREADS / GS;           // k groups
   static constexpr int KC = cmin(BN, kSlotBytes / SZ);  // columns of a slot
   static constexpr int STEPS = BN / KC;             // slots of a block
+  static constexpr int ACH = KC / VEC;              // 16-byte chunks of a row
   static constexpr int XS = KC + VEC;               // padded row of a slot
   static constexpr int A_SLOT = RT * XS;
   static constexpr int SLOT = A_SLOT + kBatchTile * XS;
@@ -149,13 +153,20 @@ struct Cfg {
       STEPS > 1 ? 1 : pow2_floor(cmax(1, kStageBytes / (SLOT * SZ)));
   static constexpr int STAGE = G * SLOT;
   static constexpr int CW = G * KC / KS;            // columns of a k group
-  static constexpr int PS = RT + VEC;               // padded partial row
+  // The k groups' partial tiles [KS][64][PS]: in the stage just consumed
+  // where they fit (rows padded where that still fits), else after the
+  // ring.
+  static constexpr int PS =
+      KS * kBatchTile * (RT + VEC) <= STAGE ? RT + VEC : RT;
   static constexpr int PART = KS > 1 ? KS * kBatchTile * PS : 0;
-  static constexpr int SMEM = (kStages * STAGE + PART) * SZ;
+  static constexpr bool PART_IN_RING = PART <= STAGE;
+  static constexpr int SMEM =
+      (kStages * STAGE + (PART_IN_RING ? 0 : PART)) * SZ;
   static_assert(BM % RT == 0 && RT % kRows == 0 && BN % KC == 0 &&
                     kRows % 4 == 0, "shape");
   static_assert(KC % VEC == 0 && CW % VEC == 0 && CW > 0, "k split");
-  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "threads");
+  static_assert(THREADS % 32 == 0 && THREADS <= 1024 && THREADS % ACH == 0,
+                "threads");
   static_assert(SMEM <= 227 * 1024, "shared memory");
 };
 
@@ -176,7 +187,7 @@ block_spmm_kernel(const int4* __restrict__ items,
   using C = Cfg<T, BM, BN>;
   using VT = Vec16<T>;
   using V = typename VT::V;
-  constexpr int ACH = C::KC / C::VEC;  // 16-byte chunks of a slot's row
+  constexpr int ACH = C::ACH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ int rp[kItemRows + 1];
@@ -247,21 +258,23 @@ block_spmm_kernel(const int4* __restrict__ items,
                    valid);
       }
     }
-    constexpr int X_CH = C::G * kBatchTile * ACH;
-    const T* xc = x + static_cast<size_t>(c.kc);
+    // x: thread t copies chunk t % ACH of rows t / ACH, + RSTEP, ...
+    constexpr int X_ROWS = C::G * kBatchTile, RSTEP = C::THREADS / ACH;
+    const int q = t % ACH, rr0 = t / ACH;
+    const T* xq = x + static_cast<size_t>(c.kc) + q * C::VEC;
     const int col0 = __ldg(block_cols + c.p);
 #pragma unroll
-    for (int i = 0; i < (X_CH + C::THREADS - 1) / C::THREADS; ++i) {
-      const int e = t + i * C::THREADS;
-      if (X_CH % C::THREADS == 0 || e < X_CH) {
-        const int q = e % ACH, bb = (e / ACH) % kBatchTile;
-        const int g = e / (ACH * kBatchTile);
+    for (int i = 0; i < (X_ROWS + RSTEP - 1) / RSTEP; ++i) {
+      const int rr = rr0 + i * RSTEP;
+      if (X_ROWS % RSTEP == 0 || rr < X_ROWS) {
+        const int bb = C::G == 1 ? rr : rr % kBatchTile;
+        const int g = C::G == 1 ? 0 : rr / kBatchTile;
         const bool valid = g < g_n && b0 + bb < batch;
         const int col =
             C::G == 1 ? col0 : __ldg(block_cols + c.p + min(g, g_n - 1));
         cp_async16(st + g * C::SLOT + C::A_SLOT + bb * C::XS + q * C::VEC,
-                   valid ? xc + static_cast<size_t>(b0 + bb) * n +
-                               static_cast<size_t>(col) * BN + q * C::VEC
+                   valid ? xq + static_cast<size_t>(b0 + bb) * n +
+                               static_cast<size_t>(col) * BN
                          : x,
                    valid);
       }
@@ -322,6 +335,7 @@ block_spmm_kernel(const int4* __restrict__ items,
         }
       }
     }
+    const int s_done = s_cons;
     s_cons = s_cons + 1 == kStages ? 0 : s_cons + 1;
 
     const int row = cons.r;
@@ -342,7 +356,8 @@ block_spmm_kernel(const int4* __restrict__ items,
         }
       }
     } else {
-      T* part = smem + kStages * C::STAGE;
+      T* part = smem + (C::PART_IN_RING ? s_done : kStages) * C::STAGE;
+      if (C::PART_IN_RING) __syncthreads();  // stage s_done is read
 #pragma unroll
       for (int j = 0; j < C::INST; ++j) {
 #pragma unroll
@@ -362,7 +377,8 @@ block_spmm_kernel(const int4* __restrict__ items,
         }
         if (b0 + bb < batch) yr[static_cast<size_t>(b0 + bb) * m + i] = sum;
       }
-      // part is written again only after the next step's __syncthreads.
+      // part is written again (or s_done refilled) only after the next
+      // step's __syncthreads.
     }
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {

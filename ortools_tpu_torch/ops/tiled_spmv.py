@@ -48,10 +48,10 @@ WARP_ROW_BYTES = 65536
 # takes at most SPMM_ROWS rows of each of its blocks, so a block-row of
 # taller blocks is split into row slices, one item each.  Block-rows of
 # blocks at most SPMM_ROWS tall are grouped, consecutive, into items of at
-# most SPMM_ITEM_ENTRIES stored entries (a longer row is an item of its
-# own) and at most SPMM_ITEM_ROWS block-rows.
+# most SPMM_ITEM_ENTRIES stored entries or one block (a longer row is an
+# item of its own) and at most SPMM_ITEM_ROWS block-rows.
 SPMM_ROWS = 32
-SPMM_ITEM_ENTRIES = 4 * 1024
+SPMM_ITEM_ENTRIES = 2 * 1024
 SPMM_ITEM_ROWS = 64
 
 
@@ -123,8 +123,8 @@ def spmm_schedule(counts: np.ndarray, block_shape) -> np.ndarray:
       L2.
     - Otherwise consecutive block-rows are grouped: an item closes before
       the row that would take it past ``SPMM_ITEM_ENTRIES`` stored entries
-      or ``SPMM_ITEM_ROWS`` rows, so each item pays one start-up for
-      several short rows.
+      (one block, where a block holds more) or ``SPMM_ITEM_ROWS`` rows, so
+      each item pays one start-up for several short rows.
 
     Items are ordered by their blocks, most first (a stable sort, so the
     table is a function of ``counts`` and the block shape), so that the

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The batched block-SpMM kernel alone at the bench shape, on one card.
 
-    python3 scripts/torch_spmm_probe.py [TREE] [--check]
+    python3 scripts/torch_spmm_probe.py [TREE] [--check] [--rates]
         [--variant NAME:CONST=VALUE[,CONST=VALUE...]] [--patch NAME OLD NEW]
 
 ``TREE`` is the root of a checkout (by default this one).  Its
@@ -14,7 +14,10 @@ f64, the kernel's time L2-cold and L2-warm (CUDA events, ``chip_smoke``'s
 ``time_launches`` and ``_cold_copies``) beside the bound and the bytes of x
 that a row-wise kernel gathers through L2.  ``--check`` first holds the
 kernel against its plain version on every shape (``chip_smoke``'s
-``spmm_against_plain``).
+``spmm_against_plain``).  ``--rates`` then runs, with the tree's own
+kernels, what the SpMM moves end to end: the moderate LPs of phase 4
+(iterations and objectives), the single path's stream rates (phase 5) and
+the batched main path with its rates and device profile (phase 7).
 
 ``--variant`` builds a copy of ``block_spmm.cu`` with the named
 ``constexpr int`` constants changed into ``build/spmm_variants/``, prints
@@ -101,6 +104,7 @@ def main() -> int:
     ap.add_argument("tree", nargs="?",
                     default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--rates", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--patch", action="append", nargs=3, default=[],
                     metavar=("NAME", "OLD", "NEW"))
@@ -195,6 +199,20 @@ def main() -> int:
                       f"{gathered} bytes of x gathered, {n_items} items; "
                       f"err {err:.2e} {'ok' if ok else 'WRONG'}", flush=True)
                 del lays, fn_args
+    if args.rates:
+        del prob, mat, x, y, y2, ref
+        _build._libs["block_spmm"] = lib0
+        for k, v in defaults.items():
+            setattr(T, k, v)
+        torch.cuda.empty_cache()
+        cs.moderate_solve()
+        single = S.build_device_problem(qp, PdhgParams(**cs.BENCH_PARAMS),
+                                        "cuda")
+        _, majors = cs.stream_rates(single)
+        del majors, single
+        torch.cuda.empty_cache()
+        _, backend = cs.batched_main_path(qp)
+        cs.batched_rates(backend)
     return 0
 
 

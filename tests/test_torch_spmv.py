@@ -305,8 +305,8 @@ def _assert_spmm_items(table, counts, block_shape):
             assert r1 - r0 == 1
         else:
             assert r1 - r0 <= T.SPMM_ITEM_ROWS
-            assert (r1 - r0 == 1
-                    or blocks * bm * bn <= T.SPMM_ITEM_ENTRIES), (r0, r1)
+            limit = max(1, T.SPMM_ITEM_ENTRIES // (bm * bn))
+            assert r1 - r0 == 1 or blocks <= limit, (r0, r1)
     np.testing.assert_array_equal(covered, 1)
     # longest first
     sizes = np.array([counts[r0:r1].sum() for r0, r1, _, _ in table])
@@ -350,7 +350,8 @@ def test_spmm_schedule_of_the_bench_lp():
     sizes = np.array([counts_a[r0:r1].sum() for r0, r1, _, _ in table])
     assert sizes.max() == counts_a.max() and counts_a.max() > limit
     assert np.all((sizes <= limit) | (table[:, 1] - table[:, 0] == 1))
-    assert 4096 / limit <= len(table) < 2048
+    # every block-row in one item, several rows in most
+    assert 4096 / max(limit, counts_a.max()) <= len(table) < 2048
     table = T.spmm_schedule(counts_at, (128, 8))
     assert len(table) == 4 * 128
     np.testing.assert_array_equal(table[:4, 2], [0, 32, 64, 96])
