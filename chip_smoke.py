@@ -1080,7 +1080,7 @@ def spmm_bound(mat: BlockSparseMatrix, value_bytes: int) -> tuple:
             nb * bn * BATCH * value_bytes)
 
 
-def spmm_times(prob, plain: bool = True) -> dict:
+def spmm_times(prob) -> dict:
     """The SpMM at the bench shape and B = 64, A and A^T, f32 then f64: its
     time L2-cold and L2-warm beside its bound and the bytes it gathers
     through L2; in f32 also its plain version's time and cuSPARSE SpMM's
@@ -1099,7 +1099,7 @@ def spmm_times(prob, plain: bool = True) -> dict:
             ms = time_launches(SPMM["wrapper"], args, 200)
             warm_ms = time_launches(SPMM["wrapper"], args[:1], 200)
             plain_ms = library_ms = None
-            if f32 and plain:
+            if f32:
                 plain_ms = time_launches(SPMM["plain"], args, 20)
                 xt = x.t().contiguous()
                 library_ms = time_launches(

@@ -15,7 +15,9 @@ and adds a block-row CSR index over them (``BlockRowLayout``):
   long rows first, then the short ones, each longest first
   (``row_schedule``), one (block-row, first block, end block, 0) entry
   each, so that a kernel finds a row's blocks in one 16-byte load.  A
-  short row goes to one warp, a long one to one thread block.
+  short row goes to one warp, a long one to one thread block;
+- ``spmm_schedule``, the SpMM kernel's work items (``spmm_schedule``):
+  short block-rows grouped, tall blocks split into slices of rows.
 
 ``tiled_matvec`` launches ``block_spmv_exact`` (``csrc/block_spmv.cu``)
 on a CUDA tensor and ``tiled_matvec_fast`` launches ``block_spmv_fast``;
@@ -256,6 +258,9 @@ def tiled_matvec_fast_plain(t: BlockRowLayout,
 
 def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
            x_dtype: torch.dtype, batched: bool = False) -> None:
+    """Raise on what the kernels do not take; the SpMV kernels read the
+    row schedule, the SpMM its work items and ``row_ptr``."""
+    schedule = t.spmm_schedule if batched else t.schedule
     bm, bn = t.block_shape
     if bm not in KERNEL_BLOCK_DIMS or bn not in KERNEL_BLOCK_DIMS:
         raise ValueError(
@@ -271,15 +276,17 @@ def _check(t: BlockRowLayout, data: torch.Tensor, x: torch.Tensor,
     elif x.dim() != 1 or x.shape[0] != n:
         raise ValueError(f"x must be the padded length-{n} vector, got "
                          f"shape {tuple(x.shape)}")
-    for name, v in (("x", x), ("data", data), ("block_cols", t.block_cols),
-                    ("schedule", t.schedule)):
+    index = [("block_cols", t.block_cols), ("schedule", schedule)]
+    if batched:
+        index.append(("row_ptr", t.row_ptr))
+    for name, v in [("x", x), ("data", data)] + index:
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if t.block_cols.dtype != torch.int32 or t.schedule.dtype != torch.int32:
-        raise TypeError("block_cols and schedule must be int32")
-    for name, v in (("x", x), ("data", data), ("schedule", t.schedule)):
+    if any(v.dtype != torch.int32 for _, v in index):
+        raise TypeError("block_cols, schedule and row_ptr must be int32")
+    for name, v in (("x", x), ("data", data), ("schedule", schedule)):
         if v.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernels "
                              f"read it in 16-byte chunks)")
@@ -362,11 +369,6 @@ def tiled_matmat(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"no exact kernel for {t.data.dtype}")
     _check(t, t.data, x, t.data.dtype, batched=True)
     items = t.spmm_schedule
-    for name, v in (("spmm_schedule", items), ("row_ptr", t.row_ptr)):
-        if v.device != x.device or v.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32 on {x.device}")
-    if items.data_ptr() % 16:
-        raise ValueError("spmm_schedule must be 16-byte aligned")
     bm, bn = t.block_shape
     batch, m = int(x.shape[0]), t.num_block_rows * bm
     y = torch.empty(batch, m, dtype=x.dtype, device=x.device)
