@@ -47,7 +47,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    pair; and the batched main path at full width: ``PdhgNodeBackend`` on
    the bench LP at B = 64 (root bounds tiled, 8 majors), with the launch
    counters set to 0 just before its first call and read just after, then
-   a second call that must capture nothing; aggregate LP-iterations/s, host
+   a second call that must capture nothing and a call with 4x the iteration
+   limit that must keep the backend's solver; aggregate LP-iterations/s, host
    syncs per major, capture seconds, peak memory, kernels per iteration and
    the busy share of a batched major, and the SpMM's time at B = 64 beside
    its bound and the bytes it gathers through L2, its plain version and
@@ -1014,6 +1015,23 @@ def batched_main_path(bench_qp) -> tuple:
     require(launches[SPMM["name"]] > 0
             and launches["block_spmv_exact"] > 0,
             f"a kernel of the batched path was not launched: {launches}")
+    # The branch-and-bound raises only the iteration limit (x4 a retry):
+    # the backend keeps its solver, so the call captures nothing.
+    solver = backend._solver
+    pdlp_solver.capture_seconds = 0.0
+    t0 = time.perf_counter()
+    raised = backend.solve(lbs, ubs, lp_params=dataclasses.replace(
+        params, iteration_limit=4 * params.iteration_limit))
+    torch.cuda.synchronize()
+    iters_raised = _accepted(backend)
+    print(f"batched bench LP, a call with 4x the iteration limit: "
+          f"{time.perf_counter() - t0:.3f} s for {iters_raised} iterations,"
+          f" capture {pdlp_solver.capture_seconds:.3f} s, the same solver: "
+          f"{backend._solver is solver}", flush=True)
+    require(backend._solver is solver and pdlp_solver.capture_seconds == 0.0
+            and iters_raised > 64 * BATCH_MAJORS
+            and bool(np.all(np.isfinite(raised.primal_solution))),
+            "a raised iteration limit rebuilt the backend's solver")
     return launches, backend
 
 
