@@ -10,7 +10,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 1. Environment: the card's name and power limit, CUDA, nvcc, triton.
 2. Build the CUDA kernels from ``ortools_tpu_torch/ops/csrc`` and print
    what ``-Xptxas -v`` says of each (registers, shared memory, spills);
-   an SpMM instantiation that spills fails the run.
+   an SpMM instantiation that spills fails the run.  Beside them, g++
+   builds the native small-LP core (``ortools_tpu_torch/_native/smalllp.cc``)
+   that the MIP path's simplex node backend loads.
 3. Each kernel against its plain PyTorch version on the card: A (8x128)
    and its transpose (128x8) at the bench shape, every other block shape
    the kernels take and its transpose at a smaller size, a skewed matrix
@@ -53,16 +55,39 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    the busy share of a batched major, and the SpMM's time at B = 64 beside
    its bound and the bytes it gathers through L2, its plain version and
    cuSPARSE SpMM (f32, L2-cold and L2-warm), and its f64 time.
-8. The ``kernels`` line (JSON), the total time, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+9. The MIP path (run before phase 8's lines): the device feasibility jump
+   at the branch-and-bound root's call shape (64 seeds, 128 steps a round,
+   40 rounds, objective descent from a feasible start) on
+   edge_packing_300_s15 and set_cover_400x150_s3 (a round under
+   ``torch.cuda.set_sync_debug_mode("error")``, the device time of single
+   rounds, the round's peak memory, every solution of the whole call
+   checked in numpy against the rows, binarity and the cutoff);
+   ``mip.solve`` with the PDHG node backend on gap_20x5_s10,
+   set_cover_150x60_s1 and the mixed-integer fixed_charge_60_s7, each
+   OPTIMAL within 1e-4·(1+|ref|) of HiGHS (``scipy.optimize.milp``), one
+   of them with a node-LP batch of several nodes, with its nodes, node-LP
+   batches, node LPs/s, BatchSolvers built and capture seconds;
+   ``mip.solve`` under ``MipParams``' defaults (the PDHG backend by the
+   auto rule, the device FJ) on edge_packing_300_s15 with a 60 s limit: a
+   verified incumbent, a valid bound, the device FJ run, its share of the
+   root time, HiGHS under a 20 s limit beside it; after each solve, the
+   SpMVs and the SpMM (at the node batch size, 64) against their plain
+   versions on the scaled A and Aᵀ of the first BatchSolver it used, in
+   f32 and f64; and the kernels' launches on the MIP path, with the
+   counters set to 0 just before each solve and read just after.
+8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
+   path), the total time, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -70,18 +95,24 @@ from pathlib import Path
 import numpy as np
 import scipy.sparse as sp
 import torch
-from scipy.optimize import linprog
+from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
 import ortools_tpu_torch
+from ortools_tpu_torch import mip
+from ortools_tpu_torch._native import build as native_build
+from ortools_tpu_torch.mip import MipParams
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.generators import block_random_lp
+from ortools_tpu_torch.models.mip_generators import miplib_like_battery
 from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
 from ortools_tpu_torch.pdlp import PdhgParams, solve
+from ortools_tpu_torch.pdlp import batched
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
 from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.pdlp.params import RestartStrategy
+from ortools_tpu_torch.sat import fj_device
 from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
@@ -171,6 +202,25 @@ def environment() -> str:
             and not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
     return smi.splitlines()[0]
+
+
+def build_native() -> threading.Thread:
+    """Build ``ortools_tpu_torch/_native/smalllp.cc`` with g++ from the
+    source, on a thread beside the kernels' nvcc: any library left from an
+    earlier build is removed first.  The thread's ``error`` is the build's
+    exception, or None."""
+    shutil.rmtree(native_build.OUT_DIR, ignore_errors=True)
+
+    def run():
+        try:
+            native_build.load_library("smalllp")
+        except Exception as e:  # reported by the caller through require
+            th.error = e
+
+    th = threading.Thread(target=run)
+    th.error = None
+    th.start()
+    return th
 
 
 # ---------------------------------------------------------------------------
@@ -1142,6 +1192,354 @@ def spmm_times(prob) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 9. The MIP path
+# ---------------------------------------------------------------------------
+
+# The B&B root's own device-FJ call (branch_and_bound.py, the root gate)
+FJ_CALL = dict(n_seeds=64, steps_per_round=128, max_rounds=40)
+FJ_INSTANCES = ("edge_packing_300_s15", "set_cover_400x150_s3")
+FJ_TIMED_ROUNDS = 5
+# Battery instances (miplib_like_battery at the scale given) with their
+# time limits: three that the JAX package solved to OPTIMAL at scale 1.0
+# (MIPLIB_r02.json), among them the mixed-integer fixed_charge_60_s7
+# (continuous flows, binary opens), which closes in 161 nodes after about
+# 74 s of f32 PDHG node LPs on the card (PERF.md §6).
+PDHG_MIPS = ((1.0, "gap_20x5_s10", 60.0), (1.0, "set_cover_150x60_s1", 90.0),
+             (1.0, "fixed_charge_60_s7", 180.0))
+# The instance that node_lp="auto" routes to the PDHG backend (m = 1,500)
+DEFAULT_MIP = "edge_packing_300_s15"
+DEFAULT_MIP_LIMIT = 60.0
+HIGHS_LIMIT = 20.0
+
+
+def battery(scale: float = 1.0) -> dict:
+    return {qp.name: qp for qp in miplib_like_battery(scale)}
+
+
+def highs_mip(qp, time_limit=None):
+    """HiGHS (scipy's milp) on the minimization form: (objective in the
+    model's own sense, or None, and HiGHS's status message)."""
+    qpm = qp.as_minimization()
+    res = milp(qpm.objective_vector,
+               constraints=LinearConstraint(qpm.constraint_matrix,
+                                            qpm.constraint_lower,
+                                            qpm.constraint_upper),
+               bounds=Bounds(qpm.variable_lower, qpm.variable_upper),
+               integrality=np.asarray(qpm.integrality, dtype=int),
+               options={} if time_limit is None
+               else {"time_limit": time_limit})
+    obj = None if res.x is None else float(
+        (-1.0 if qp.maximize else 1.0) * (qpm.objective_vector @ res.x))
+    return obj, res.message
+
+
+def mip_violations(qp, x) -> dict:
+    """The largest violations of ``x`` in the model's space: of a row,
+    absolute and relative to 1 + the row's largest finite bound (the B&B's
+    own solution checker, ``branch_and_bound._check_feasible``), of a
+    variable bound, and of integrality."""
+    ax = qp.constraint_matrix @ x
+    lo, hi = qp.constraint_lower, qp.constraint_upper
+    row = np.maximum(np.maximum(lo - ax, ax - hi), 0.0)
+    scale = 1.0 + np.maximum(np.abs(np.where(np.isfinite(lo), lo, 0.0)),
+                             np.abs(np.where(np.isfinite(hi), hi, 0.0)))
+    bound = np.maximum(np.maximum(qp.variable_lower - x,
+                                  x - qp.variable_upper), 0.0)
+    integ = np.asarray(qp.integrality, dtype=bool)
+    frac = np.abs(x[integ] - np.round(x[integ]))
+    return dict(row=float(row.max(initial=0.0)),
+                row_rel=float((row / scale).max(initial=0.0)),
+                bound=float(bound.max(initial=0.0)),
+                integrality=float(frac.max(initial=0.0)))
+
+
+def mip_feasible(qp, x, tol=1e-6) -> bool:
+    """A numpy check of ``x`` against the B&B's feasibility contract
+    (``MipParams.feasibility_tol``): every row within tol·(1 + its largest
+    finite bound), every variable bound within tol, every integer variable
+    within tol of an integer."""
+    v = mip_violations(qp, x)
+    return v["row_rel"] <= tol and v["bound"] <= tol and v["integrality"] <= tol
+
+
+def fj_feasible_start(qp_min) -> np.ndarray:
+    """The all-zeros or all-ones point, whichever is feasible (a packing's
+    empty set, a cover's full set): the search starts from a verified
+    incumbent, as the B&B's root call does."""
+    for x0 in (np.zeros(qp_min.num_variables), np.ones(qp_min.num_variables)):
+        if mip_feasible(qp_min, x0):
+            return x0
+    raise SmokeFailure(f"{qp_min.name}: no trivial feasible start")
+
+
+def device_fj_rounds(qp) -> None:
+    """The device FJ at the B&B root's call shape, in objective-descent
+    mode from a feasible start: a round under the sync debug mode (a host
+    read inside it raises), the device time of single rounds (CUDA
+    events), the peak memory of a round and the size of its [S, m, n]
+    temporaries; then the whole call, whose solutions must pass a numpy
+    check of the rows, binarity and the cutoff."""
+    qp_min = qp.as_minimization()
+    c = qp_min.objective_vector
+    x0 = fj_feasible_start(qp_min)
+    obj0 = float(c @ x0)
+    cutoff = obj0 - max(1e-6, 1e-4 * abs(obj0))
+    a2, lb2, ub2 = fj_device.objective_descent_system(
+        qp_min.constraint_matrix, qp_min.constraint_lower,
+        qp_min.constraint_upper, c, cutoff)
+    a_d = np.ascontiguousarray(a2.toarray(), dtype=np.float32)
+    m, n = a_d.shape
+    sys_ = fj_device.make_system(a_d, lb2, ub2, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st = fj_device.initial_state(sys_, FJ_CALL["n_seeds"], gen, x0)
+    steps = FJ_CALL["steps_per_round"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fj_device.run_round(sys_, st, gen, steps, 0.3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    ms = []
+    for _ in range(FJ_TIMED_ROUNDS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fj_device.run_round(sys_, st, gen, steps, 0.3)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    x = st.x.cpu().numpy()
+    require(bool(np.allclose(st.act.cpu().numpy(), x @ a_d.T, rtol=1e-5,
+                             atol=1e-3)),
+            f"{qp.name}: device FJ activities drifted from A x")
+    temp = FJ_CALL["n_seeds"] * m * n * 4
+    del sys_, st
+    res = fj_device.device_feasibility_jump(a2, lb2, ub2, x0=x0, **FJ_CALL)
+    for xs in res.solutions:
+        require(mip_feasible(qp_min, xs) and float(c @ xs) <= cutoff + 1e-6,
+                f"{qp.name}: a device-FJ solution fails the numpy check")
+    best = min((float(c @ xs) for xs in res.solutions), default=None)
+    print(f"device FJ {qp.name} ({m} x {n} with the cutoff row, "
+          f"S={FJ_CALL['n_seeds']}, {steps} steps a round): a round under "
+          f"sync debug mode 'error' raised nothing; device ms per round "
+          f"{', '.join(f'{v:.3f}' for v in ms)} (CUDA events); peak memory "
+          f"of a round {peak} bytes, one [S, m, n] f32 temporary {temp} "
+          f"bytes; the call: {res.rounds_run} rounds, "
+          f"{res.moves_per_second:.1f} moves/s, {res.wall_time_sec:.3f} s, "
+          f"{len(res.solutions)} verified solutions, start {obj0!r}, "
+          f"cutoff {cutoff!r}, best {best!r} (minimization form)",
+          flush=True)
+    require(bool(res.solutions),
+            f"{qp.name}: the device FJ found no improving solution")
+
+
+class _CallLog:
+    """For the length of a solve, wraps PdhgNodeBackend.solve and
+    device_feasibility_jump to record each call's start and end (host
+    clock) with the node LPs it held or the rounds it ran, and the scaled
+    problem of the first ``BatchSolver`` the solve used; zeroes the launch,
+    solver and capture counters on entry."""
+
+    def __enter__(self):
+        self.batches, self.fj = [], []  # (start, end, node LPs / rounds)
+        self.prob = None
+        self._solve = PdhgNodeBackend.solve
+        self._fj = fj_device.device_feasibility_jump
+        log = self
+
+        def solve_(backend, lbs, *a, **k):
+            t0 = time.perf_counter()
+            res = log._solve(backend, lbs, *a, **k)
+            log.batches.append((t0, time.perf_counter(), lbs.shape[0]))
+            if log.prob is None:
+                log.prob = backend._solver.prob
+            return res
+
+        def fj_(*a, **k):
+            t0 = time.perf_counter()
+            res = log._fj(*a, **k)
+            log.fj.append((t0, time.perf_counter(), res.rounds_run))
+            return res
+
+        PdhgNodeBackend.solve = solve_
+        fj_device.device_feasibility_jump = fj_
+        reset_counters()
+        batched.solvers_built = 0
+        pdlp_solver.capture_seconds = 0.0
+        pdlp_solver.host_syncs = 0
+        return self
+
+    def __exit__(self, *exc):
+        PdhgNodeBackend.solve = self._solve
+        fj_device.device_feasibility_jump = self._fj
+
+    def counts(self) -> dict:
+        launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+        launches[SPMM["name"]] = SPMM["wrapper"].launches
+        node_lps = sum(n for _, _, n in self.batches)
+        seconds = sum(t1 - t0 for t0, t1, _ in self.batches)
+        return dict(
+            launches=launches, batches=len(self.batches), node_lps=node_lps,
+            largest_batch=max((n for _, _, n in self.batches), default=0),
+            node_lps_per_s=node_lps / max(seconds, 1e-9),
+            backend_seconds=seconds, solvers_built=batched.solvers_built,
+            capture_seconds=pdlp_solver.capture_seconds,
+            host_syncs=pdlp_solver.host_syncs, fj_calls=len(self.fj),
+            fj_rounds=sum(r for _, _, r in self.fj),
+            fj_seconds=sum(t1 - t0 for t0, t1, _ in self.fj))
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def node_lp_kernels(name: str, prob, errs: dict) -> None:
+    """The kernels against their plain versions on the scaled matrices
+    (A and Aᵀ, at the block shapes the solve picked) of the first
+    ``BatchSolver`` a solve used: the SpMVs as in phase 3 and the SpMM at
+    the node batch size, each in f32 and f64.  Run after the solve's
+    counts are read."""
+    require(prob is not None, f"{name}: no BatchSolver was used")
+    for label, mat in (("A", prob.a), ("A^T", prob.at)):
+        bm, bn = mat.block_shape
+        plain = mat.without_tiled()
+        tag = f"{name} {label} ({bm}x{bn})"
+        check_matrix(tag, plain, errs)
+        check_spmm(tag, plain, MipParams().node_batch_size, errs)
+
+
+def pdhg_mip(scale: float, name: str, limit: float) -> dict:
+    """``mip.solve`` with the PDHG node backend on a battery instance of
+    ``miplib_like_battery(scale)`` under a ``limit``-second time limit,
+    with HiGHS's optimum beside it; the counters are zeroed just before the
+    solve and read just after.  Prints the run; returns the result, HiGHS's
+    objective, the counts and the first BatchSolver's scaled problem."""
+    qp = battery(scale)[name]
+    ref, msg = highs_mip(qp)
+    with _CallLog() as log:
+        t0 = time.perf_counter()
+        r = mip.solve(qp, MipParams(node_lp="pdhg", time_limit_sec=limit))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    cnt = log.counts()
+    rel = (abs(r.objective_value - ref) / (1 + abs(ref))
+           if ref is not None else float("nan"))
+    viol = None if r.solution is None else mip_violations(qp, r.solution)
+    print(f"mip.solve {name} ({qp.num_constraints} x "
+          f"{qp.num_variables}, {int(np.sum(qp.integrality))} integer)"
+          f", node_lp='pdhg', limit {limit} s: {r.status.name} "
+          f"{r.objective_value!r}, HiGHS {ref!r} ({msg}; rel "
+          f"{rel:.2e}), bound {r.best_bound!r}, {dt:.3f} s, violations "
+          f"{viol}; {r.num_nodes} nodes, {cnt['batches']} node-LP batches "
+          f"(largest "
+          f"{cnt['largest_batch']} node LPs), {cnt['node_lps']} node LPs in "
+          f"{cnt['backend_seconds']:.3f} s of backend calls "
+          f"({cnt['node_lps_per_s']:.1f} node LPs/s), "
+          f"{cnt['solvers_built']} BatchSolvers built, capture "
+          f"{cnt['capture_seconds']:.3f} s, host syncs "
+          f"{cnt['host_syncs']}; launches {cnt['launches']}", flush=True)
+    return dict(qp=qp, result=r, ref=ref, rel=rel, counts=cnt,
+                prob=log.prob)
+
+
+def pdhg_mips(errs: dict, cases=PDHG_MIPS) -> dict:
+    """``pdhg_mip`` on each case ((scale, name, time limit)), each to
+    OPTIMAL within 1e-4(1+|ref|) of HiGHS with a solution that passes the
+    numpy check, at least one of them with a node-LP batch of more than one
+    node; then the kernels on each solve's node-LP matrices.  Returns the
+    launches summed."""
+    total, largest = {}, 0
+    for scale, name, limit in cases:
+        run = pdhg_mip(scale, name, limit)
+        r, ref, cnt = run["result"], run["ref"], run["counts"]
+        _add(total, cnt["launches"])
+        require(r.status.name == "OPTIMAL",
+                f"{name}: not OPTIMAL through the PDHG node backend")
+        require(ref is not None and run["rel"] <= 1e-4,
+                f"{name}: objective disagrees with HiGHS")
+        require(mip_feasible(run["qp"], r.solution),
+                f"{name}: the solution fails the numpy check: "
+                f"{mip_violations(run['qp'], r.solution)}")
+        require(cnt["batches"] > 0 and cnt["launches"][SPMM["name"]] > 0,
+                f"{name}: no node-LP batch went through the SpMM")
+        largest = max(largest, cnt["largest_batch"])
+        node_lp_kernels(name, run["prob"], errs)
+    require(largest > 1, "no OPTIMAL solve sent a batch of several node LPs")
+    return total
+
+
+def default_mip(errs: dict, name=DEFAULT_MIP,
+                limit=DEFAULT_MIP_LIMIT) -> dict:
+    """``mip.solve`` under MipParams' defaults (node_lp and device_fj
+    "auto") on the battery instance that the auto rule sends to the PDHG
+    backend: a verified incumbent, a valid bound, the device FJ run; its
+    root time and the device FJ's share of it; HiGHS under a time limit
+    beside it; then the kernels on its node-LP matrices.  Returns the
+    launches."""
+    qp = battery()[name]
+    ref, msg = highs_mip(qp, HIGHS_LIMIT)
+    with _CallLog() as log:
+        t0 = time.perf_counter()
+        r = mip.solve(qp, MipParams(time_limit_sec=limit))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    cnt = log.counts()
+    fj_end = log.fj[-1][1] if log.fj else None
+    tree = [b for b in log.batches if fj_end is not None and b[0] >= fj_end]
+    root_s = (tree[0][0] if tree else t0 + dt) - t0
+    obj = r.objective_value
+    print(f"mip.solve {name} ({qp.num_constraints} x {qp.num_variables}) "
+          f"under MipParams defaults, limit {limit} s: {r.status.name} "
+          f"{obj!r}, bound {r.best_bound!r}, {r.num_nodes} nodes, {dt:.3f} "
+          f"s ({dt - limit:+.3f} s past the limit); HiGHS with "
+          f"{HIGHS_LIMIT} s: {ref!r} ({msg}); root {root_s:.3f} s, device "
+          f"FJ {cnt['fj_calls']} calls, {cnt['fj_rounds']} rounds, "
+          f"{cnt['fj_seconds']:.3f} s ({cnt['fj_seconds'] / root_s:.1%} of "
+          f"the root); {cnt['batches']} node-LP batches (largest "
+          f"{cnt['largest_batch']}), {cnt['node_lps']} node LPs ({cnt['node_lps_per_s']:.1f}/s), "
+          f"{cnt['solvers_built']} BatchSolvers built, capture "
+          f"{cnt['capture_seconds']:.3f} s; launches {cnt['launches']}",
+          flush=True)
+    require(r.status.name in ("OPTIMAL", "FEASIBLE"),
+            f"{name}: no incumbent under the defaults")
+    require(mip_feasible(qp, r.solution)
+            and abs(float(qp.objective_vector @ r.solution) - obj)
+            <= 1e-9 * (1 + abs(obj)),
+            f"{name}: the incumbent fails the numpy check: "
+            f"{mip_violations(qp, r.solution)}")
+    # the bound in the model's own sense: above the objective for a
+    # maximization, below it for a minimization
+    sense = -1.0 if qp.maximize else 1.0
+    require(sense * r.best_bound <= sense * obj + 1e-6 * (1 + abs(obj)),
+            f"{name}: the bound is not valid")
+    require(cnt["fj_calls"] > 0, f"{name}: the device FJ did not run")
+    require(cnt["batches"] > 0, f"{name}: no node-LP batch on the card")
+    node_lp_kernels(name, log.prob, errs)
+    return cnt["launches"]
+
+
+def mip_path(errs: dict) -> dict:
+    """Phase 9.  Returns the launches of the MIP path (the PDHG solves and
+    the default path); the kernels' errors on its node-LP matrices go into
+    ``errs``."""
+    bat = battery()
+    for name in FJ_INSTANCES:
+        device_fj_rounds(bat[name])
+    launches = pdhg_mips(errs)
+    _add(launches, default_mip(errs))
+    print(f"launches on the MIP path: {launches}", flush=True)
+    require(launches["block_spmv_exact"] > 0
+            and launches[SPMM["name"]] > 0,
+            f"a kernel of the MIP path was not launched: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1158,12 +1556,16 @@ def main() -> int:
     phase("1. environment")
     smi_line = environment()
 
-    phase("2. build the kernels (nvcc -Xptxas -v)")
+    phase("2. build the kernels (nvcc -Xptxas -v) and the native core (g++)")
     t0 = time.perf_counter()
+    native = build_native()
     report = _build.build()
     for name in _build.SOURCES:
         _build.library(name)
+    native.join()
+    require(native.error is None, f"the native build failed: {native.error}")
     print(report.strip())
+    print(f"native core: {native_build.library_path('smalllp').name}")
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
     spilled = spmm_spills(report)
     require(not spilled, f"SpMM instantiations spill registers: {spilled}")
@@ -1212,6 +1614,10 @@ def main() -> int:
     del backend
     torch.cuda.empty_cache()
 
+    phase("9. the MIP path: the device FJ, mip.solve with PDHG node LPs, "
+          "mip.solve under the defaults")
+    mip_launches = mip_path(errs)
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -1222,7 +1628,8 @@ def main() -> int:
             max_abs_err=errs[name], ms=a["ms"], plain_ms=a["plain_ms"],
             bound_ms=a["bound_ms"], bound_by=a["bound_by"],
             library_ms=a["library_ms"], warm_ms=a["warm_ms"],
-            bsr_ms=a["bsr_ms"], transpose=at, ok=True))
+            bsr_ms=a["bsr_ms"], transpose=at,
+            mip_path_launches=mip_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -1231,7 +1638,8 @@ def main() -> int:
         bound_ms=a["bound_ms"], bound_by=a["bound_by"],
         library_ms=a["library_ms"], warm_ms=a["warm_ms"], batch=BATCH,
         gathered_bytes=a["gathered_bytes"], transpose=spmm["A^T"],
-        f64=[spmm["f64 A"], spmm["f64 A^T"]], ok=True))
+        f64=[spmm["f64 A"], spmm["f64 A^T"]],
+        mip_path_launches=mip_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

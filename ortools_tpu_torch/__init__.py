@@ -9,7 +9,10 @@ they raise when no card is present unless the caller asks for the CPU.
 Ported so far: the single-device PDLP solve (``pdlp.solve``) with both of
 its block-sparse SpMV kernels (``ops/csrc/block_spmv.cu``), and the batched
 solve (``pdlp.batched.solve_batch``, ``mip.node_lp.PdhgNodeBackend``) with
-its block SpMM kernel (``ops/csrc/block_spmm.cu``).
+its block SpMM kernel (``ops/csrc/block_spmm.cu``), and the batched
+branch-and-bound MIP solve (``mip.solve``) with the device feasibility jump
+(``sat.fj_device``) and the host modules it needs (copies of the JAX
+package's, with the native small-LP core ``_native/smalllp.cc``).
 """
 
 import torch

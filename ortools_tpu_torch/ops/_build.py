@@ -7,7 +7,9 @@ SpMV kernels; ``block_spmm.cu``: the batched block-row SpMM) for
 is loaded with ctypes.  ``build`` starts one ``nvcc`` per source, all at
 once.  A file name carries a hash of its source and the flags, so an edited
 source is rebuilt and concurrent builds never see a half-written library
-(each writes a private file and renames it into place).
+(each writes a private file and renames it into place).  ``load`` is the
+same scheme for one library and any compiler command; the native C++ core
+(``_native/build.py``) is built and loaded through it.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +48,8 @@ _FUNCTIONS = {
 }
 
 _libs: dict = {}
+_loaded: dict = {}
+_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -62,38 +67,63 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _start(compiler: list, src: Path, so: Path):
+    """Start ``compiler`` (the command and its flags) on ``src``, writing a
+    private file beside ``so``."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [*compiler, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return so, tmp, cmd, proc
+
+
+def _finish(job) -> str:
+    """Wait for a ``_start``ed compile; rename its library and the
+    compiler's report (``.log``) into place and return the report."""
+    so, tmp, cmd, proc = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(cmd[0]).name} failed ({proc.returncode}):"
+                           f" {' '.join(cmd)}\n{out}\n{err}")
+    log = so.with_suffix(".log")
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(out + err)
+    os.replace(tmp, so)
+    os.replace(tmp_log, log)
+    return out + err
+
+
 def build(names=tuple(SOURCES)) -> str:
     """Compile the named sources that are not built yet, one ``nvcc`` each,
     all started together; returns the compiler's reports (``-Xptxas -v``:
     registers, shared memory and spills of every kernel), kept beside each
     library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = []
-    for name in names:
-        so = _library_path(name)
-        if so.exists() and so.with_suffix(".log").exists():
-            continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        running.append((so, tmp, cmd, proc))
+    compiler = [nvcc_path(), *NVCC_FLAGS]
+    running = [_start(compiler, SOURCES[name], so) for name in names
+               for so in (_library_path(name),)
+               if not (so.exists() and so.with_suffix(".log").exists())]
     failures = []
-    for so, tmp, cmd, proc in running:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed ({proc.returncode}): "
-                            f"{' '.join(cmd)}\n{out}\n{err}")
-            continue
-        log = so.with_suffix(".log")
-        tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
-        tmp_log.write_text(out + err)
-        os.replace(tmp, so)
-        os.replace(tmp_log, log)
+    for job in running:
+        try:
+            _finish(job)
+        except RuntimeError as e:
+            failures.append(str(e))
     if failures:
         raise RuntimeError("\n".join(failures))
     return "".join(_library_path(name).with_suffix(".log").read_text()
                    for name in names)
+
+
+def load(compiler: list, src: Path, so: Path) -> ctypes.CDLL:
+    """The library ``so`` built from ``src`` by ``compiler``, compiled first
+    where it is missing and loaded once per process."""
+    with _LOCK:
+        if so not in _loaded:
+            if not so.exists():
+                _finish(_start(compiler, src, so))
+            _loaded[so] = ctypes.CDLL(str(so))
+        return _loaded[so]
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -70,6 +70,12 @@ class BatchSolveResult:
     iterations: int
 
 
+# BatchSolvers built so far (each scales its problem, runs power iteration
+# and, on a card, captures its own graphs); a plain counter that callers
+# may reset and read.
+solvers_built = 0
+
+
 def _select_state(mask: torch.Tensor, a: S.PdhgState,
                   b: S.PdhgState) -> S.PdhgState:
     """Per-instance select between two batched states (mask [B, 1])."""
@@ -84,6 +90,8 @@ class BatchSolver:
 
     def __init__(self, qp: QuadraticProgram, params: Optional[PdhgParams],
                  batch_size: int, device="cuda", v0=None):
+        global solvers_built
+        solvers_built += 1
         self.params = params or PdhgParams()
         self.device = resolve_device(device)
         self.qp = qp.as_minimization()

@@ -1,6 +1,11 @@
-"""Termination reasons of the iterative solvers (copy of
-``ortools_tpu/utils/status.py``'s ``TerminationReason``; the PDLP-style
-vocabulary of the reference's ``ortools/pdlp/solve_log.proto``)."""
+"""Solver status and termination enums.
+
+Capability parity: the status vocabularies of the reference —
+``ortools/pdlp/solve_log.proto`` (TerminationReason),
+``ortools/linear_solver/linear_solver.proto`` (MPSolverResponseStatus) and
+``ortools/sat/cp_model.proto:717`` (CpSolverStatus) — merged into a small
+set of enums used across the framework.
+"""
 
 import enum
 
@@ -24,3 +29,27 @@ class TerminationReason(enum.Enum):
     @property
     def is_optimal(self) -> bool:
         return self is TerminationReason.OPTIMAL
+
+
+class SolveStatus(enum.Enum):
+    """CP/MIP solve status (CP-SAT-style vocabulary).
+
+    Mirrors CpSolverStatus in the reference's cp_model.proto:717.
+    """
+
+    UNKNOWN = 0
+    MODEL_INVALID = 1
+    FEASIBLE = 2
+    INFEASIBLE = 3
+    OPTIMAL = 4
+
+
+# MPSolver-style result statuses (reference linear_solver.h:426).
+class MPSolverStatus(enum.Enum):
+    OPTIMAL = 0
+    FEASIBLE = 1
+    INFEASIBLE = 2
+    UNBOUNDED = 3
+    ABNORMAL = 4
+    MODEL_INVALID = 5
+    NOT_SOLVED = 6

@@ -503,3 +503,82 @@ def test_failed_capture_raises_on_card(cuda, monkeypatch):
     majors.load(state)
     with pytest.raises(RuntimeError):
         majors.major(False)
+
+
+def _cover_system(n=300, m=120, density=0.05, seed=3):
+    rng = np.random.default_rng(seed)
+    a = (rng.random((m, n)) < density).astype(float)
+    a[np.arange(m), rng.integers(0, n, m)] = 1.0
+    cost = 1.0 + rng.random(n)
+    return sp.csr_matrix(a), np.ones(m), np.full(m, np.inf), cost
+
+
+@pytest.mark.gpu
+def test_device_fj_round_reads_nothing_on_card(cuda):
+    """A round of the device feasibility jump runs with no host read (the
+    sync debug mode raises on one), and every solution the search returns
+    passes a numpy check of the rows and the cutoff."""
+    from ortools_tpu_torch.sat import fj_device as F
+
+    a, rlo, rhi, cost = _cover_system()
+    cutoff = 0.8 * float(cost.sum())
+    a2, lb2, ub2 = F.objective_descent_system(a, rlo, rhi, cost, cutoff)
+    a_d = np.asarray(a2.todense(), dtype=np.float32)
+    sys_ = F.make_system(a_d, lb2, ub2, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    st = F.initial_state(sys_, 64, gen, np.ones(a.shape[1]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        F.run_round(sys_, st, gen, 128, 0.3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    x = st.x.cpu().numpy()
+    np.testing.assert_allclose(st.act.cpu().numpy(), x @ a_d.T, rtol=1e-5,
+                               atol=1e-3)
+    res = F.device_feasibility_jump(a2, lb2, ub2, n_seeds=64,
+                                    steps_per_round=128, max_rounds=40,
+                                    x0=np.ones(a.shape[1]), device=cuda)
+    assert res.solutions
+    for xs in res.solutions:
+        ax = a @ xs
+        assert (ax >= rlo - 1e-6).all() and float(cost @ xs) <= cutoff + 1e-6
+        assert set(np.unique(xs)) <= {0.0, 1.0}
+
+
+@pytest.mark.gpu
+def test_mip_solve_with_pdhg_node_lps_on_card(cuda, monkeypatch):
+    """A small knapsack MIP through the PDHG node backend on the card, to
+    OPTIMAL against HiGHS."""
+    from scipy.optimize import Bounds, LinearConstraint, milp
+
+    from ortools_tpu_torch.mip import MipParams, solve
+    from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
+    from ortools_tpu_torch.models.lp import QuadraticProgram
+
+    rng = np.random.default_rng(2)
+    n = 14
+    w = rng.integers(1, 20, size=n).astype(float)
+    v = rng.integers(1, 30, size=n).astype(float)
+    qp = QuadraticProgram(
+        objective_vector=v, constraint_matrix=sp.csr_matrix(w[None]),
+        constraint_lower=np.array([-np.inf]),
+        constraint_upper=np.array([0.4 * w.sum()]),
+        variable_lower=np.zeros(n), variable_upper=np.ones(n),
+        maximize=True, integrality=np.ones(n, dtype=bool))
+    ref = milp(-v, constraints=LinearConstraint(w[None], -np.inf,
+                                                0.4 * w.sum()),
+               bounds=Bounds(0, 1), integrality=np.ones(n))
+    batches = []
+    backend_solve = PdhgNodeBackend.solve
+
+    def counted(backend, lbs, *args, **kw):
+        batches.append(lbs.shape[0])
+        return backend_solve(backend, lbs, *args, **kw)
+
+    monkeypatch.setattr(PdhgNodeBackend, "solve", counted)
+    r = solve(qp, MipParams(node_lp="pdhg", node_batch_size=8,
+                            time_limit_sec=120.0), device=cuda)
+    assert batches
+    assert r.status.name == "OPTIMAL"
+    assert abs(r.objective_value - (-ref.fun)) <= 1e-4 * (1 + abs(ref.fun))

@@ -8,9 +8,13 @@ import pytest
 import torch
 
 import ortools_tpu_torch  # noqa: F401  (sets the precision pins)
+from ortools_tpu_torch import mip
+from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.lp import random_lp
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
 from ortools_tpu_torch.pdlp import PdhgParams, solve
+from ortools_tpu_torch.pdlp.batched import solve_batch
+from ortools_tpu_torch.sat.fj_device import device_feasibility_jump
 
 # The tensors are small: one thread each keeps the parallel test run's
 # workers off each other's cores.
@@ -18,7 +22,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ortools_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_spmm_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_spmm_probe.py",
+    ROOT / "scripts" / "torch_mip_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -48,6 +53,18 @@ def test_entry_points_raise_without_a_card():
         solve(qp, PdhgParams())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BlockSparseMatrix.from_scipy(qp.constraint_matrix)
+    lbs = np.tile(qp.variable_lower, (2, 1))
+    ubs = np.tile(qp.variable_upper, (2, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_batch(qp, lbs, ubs, PdhgParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PdhgNodeBackend(qp, PdhgParams(), 2).solve(lbs, ubs)
+    qp.integrality = np.ones(qp.num_variables, dtype=bool)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mip.solve(qp, mip.MipParams())
+    a = np.ones((2, 3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_feasibility_jump(a, np.ones(2), np.full(2, np.inf))
 
 
 def test_tf32_is_off_and_matmul_precision_highest():
