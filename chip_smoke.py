@@ -75,8 +75,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    versions on the scaled A and Aᵀ of the first BatchSolver it used, in
    f32 and f64; and the kernels' launches on the MIP path, with the
    counters set to 0 just before each solve and read just after.
+10. The front end (run before phase 8's lines): the bench LP written as
+   MPS (about 169 MB) with ``write_mps``, read back with
+   ``Model.import_from_mps_file`` and ``to_qp``, equal to the generated QP
+   exactly; ``Solver("pdlp")`` on the imported model at the bench's
+   parameters, its iterations and solutions bit for bit those of
+   ``pdlp.solve`` on the generated QP, both SpMVs launched; ``python -m
+   ortools_tpu_torch solve`` in subprocesses from the checkout, the
+   kernels built: moderate LP seed 1 under pdlp (OPTIMAL against HiGHS,
+   the .sol file checked against the rows and bounds), a 128 x 256 LP under
+   glop (the host simplex ends ABNORMAL on the 2048^2 LPs) and
+   gap_20x5_s10 (INTORG markers) under mip, OPTIMAL at milp's objective;
+   ``math_opt.solve(PDLP)`` on moderate LP seed 1 against HiGHS;
+   ``dp_knapsack_torch`` at 1,000 items and capacity 10^6 against a numpy
+   DP, under ``torch.cuda.set_sync_debug_mode("error")``, with a call's
+   time, its peak memory, and its kernels per item and their device time
+   (``torch.profiler``); ``KnapsackSolver``'s
+   multi-dimensional MIP fallback (3 x 40) and ``solve_set_cover_mip`` on
+   set_cover_150x60_s1's matrix, OPTIMAL at milp's objective; with the
+   launches of its in-process solves, the counters set to 0 just before
+   each and read just after.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
-   path), the total time, the card's name and power limit, and last
+   path and on the front end, and the fast SpMV's bf16 CSR yardstick), the
+   total time, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,12 +105,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -98,13 +122,20 @@ import torch
 from scipy.optimize import Bounds, LinearConstraint, linprog, milp
 
 import ortools_tpu_torch
-from ortools_tpu_torch import mip
+import ortools_tpu_torch.pdlp as pdlp_pkg
+from ortools_tpu_torch import math_opt, mip
 from ortools_tpu_torch._native import build as native_build
+from ortools_tpu_torch.algorithms import KnapsackSolver, SetCoverModel
+from ortools_tpu_torch.algorithms.knapsack import (dp_knapsack_table,
+                                                   dp_knapsack_torch)
+from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
+from ortools_tpu_torch.linear_solver import LinearExpr, Model, Solver
 from ortools_tpu_torch.mip import MipParams
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.generators import block_random_lp
 from ortools_tpu_torch.models.mip_generators import miplib_like_battery
 from ortools_tpu_torch.models.lp import QuadraticProgram
+from ortools_tpu_torch.models.mps import write_mps
 from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
 from ortools_tpu_torch.pdlp import PdhgParams, solve
@@ -164,13 +195,24 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_T_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title} (at {time.perf_counter() - _T_START:.1f} s)",
+          flush=True)
 
 
 def reset_counters() -> None:
     for k in list(KERNELS.values()) + [SPMM]:
         k["wrapper"].launches = 0
+
+
+def _launches() -> dict:
+    """Each kernel's launch count since ``reset_counters``."""
+    out = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+    out[SPMM["name"]] = SPMM["wrapper"].launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -350,14 +392,37 @@ def highs_objective(qp) -> float:
     return float(res.fun)
 
 
+def in_threads(fn, args_list: list) -> list:
+    """``fn(*args)`` for each of ``args_list``, in threads: HiGHS releases
+    the GIL while it solves, so a phase's references take about as long as
+    the slowest of them."""
+    with ThreadPoolExecutor(max_workers=min(8, len(args_list))) as ex:
+        return list(ex.map(lambda a: fn(*a), args_list))
+
+
+_MODERATE_REFS: dict = {}
+
+
+def moderate_refs(seeds) -> dict:
+    """HiGHS's optimum of each seed's moderate LP, computed once a seed."""
+    todo = [s for s in seeds if s not in _MODERATE_REFS]
+    if todo:
+        refs = in_threads(
+            lambda s: highs_objective(block_random_lp(**MODERATE, seed=s)),
+            [(s,) for s in todo])
+        _MODERATE_REFS.update(zip(todo, refs))
+    return {s: _MODERATE_REFS[s] for s in seeds}
+
+
 def moderate_solve(seeds=MODERATE_SEEDS) -> None:
     """Each seed's moderate LP to OPTIMAL with default parameters: the
     iterations and time to tolerance, held against HiGHS.  Several seeds,
     because one LP's count moves by majors under a change of summation
     order."""
+    refs = moderate_refs(seeds)
     for seed in seeds:
         qp = block_random_lp(**MODERATE, seed=seed)
-        ref = highs_objective(qp)
+        ref = refs[seed]
         reset_counters()
         r = solve(qp, PdhgParams(record_iteration_stats=True))
         launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
@@ -597,9 +662,11 @@ def time_launches(fn, args_list, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _csr_copies(mat: BlockSparseMatrix, copies: int) -> list:
-    """The matrix as torch sparse CSR tensors on the card, every stored
-    entry kept (the library yardstick; the port never calls it)."""
+def _csr_copies(mat: BlockSparseMatrix, copies: int,
+                dtype: torch.dtype = torch.float32) -> list:
+    """The matrix as torch sparse CSR tensors of ``dtype`` on the card,
+    every stored entry kept (the library yardstick; the port never calls
+    it)."""
     bm, bn = mat.block_shape
     lay = mat.tiled
     br = lay.block_rows.cpu().numpy().astype(np.int64)
@@ -615,7 +682,8 @@ def _csr_copies(mat: BlockSparseMatrix, copies: int) -> list:
               out=indptr[1:])
     crow = torch.as_tensor(indptr, dtype=torch.int32, device="cuda")
     col = torch.as_tensor(cols[order], dtype=torch.int32, device="cuda")
-    val = torch.as_tensor(vals[order], dtype=torch.float32, device="cuda")
+    val = torch.as_tensor(vals[order], dtype=torch.float32,
+                          device="cuda").to(dtype)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="Sparse")
         return [torch.sparse_csr_tensor(crow.clone(), col.clone(),
@@ -648,6 +716,24 @@ def _bsr_product(mat: BlockSparseMatrix, x: torch.Tensor):
             continue
         return fn, None
     return None, " / ".join(why)
+
+
+def _bf16_csr(csrs: list, x: torch.Tensor, fast_ref: torch.Tensor) -> dict:
+    """torch's bf16 sparse CSR product (bf16 values @ bf16 x), the nearest
+    library call to the fast kernel: it returns y in bf16, where the fast
+    kernel sums and returns f32, so it is not the same function.  Its time
+    (L2-cold), its output's dtype and its distance from the fast kernel's
+    plain version, or why torch refuses it."""
+    xb = x.bfloat16()
+    try:
+        y = csrs[0] @ xb
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+        return dict(ms=None, refused=str(e).splitlines()[0][:160])
+    err, scale = _rel_err(y, fast_ref)
+    ms = time_launches(lambda a, v: a @ v, [(c, xb) for c in csrs], 200)
+    return dict(ms=ms, dtype=str(y.dtype).replace("torch.", ""),
+                max_abs_err=err, scale=scale)
 
 
 def kernel_bound_ms(mat: BlockSparseMatrix, value_bytes: int,
@@ -755,10 +841,15 @@ def kernel_times(prob) -> dict:
             ms = time_launches(spec["wrapper"], args, 400)
             warm_ms = time_launches(spec["wrapper"], args[:1], 400)
             plain_ms = time_launches(spec["plain"], args, 100)
+            bf16_csr = None
             if fast:
                 # No PyTorch call multiplies bf16 blocks by a bf16-rounded
-                # x into an f32 result.
+                # x into an f32 result; the bf16 CSR product (y in bf16)
+                # is timed beside it, not as its library call.
                 library_ms = bsr_ms = None
+                csrs16 = _csr_copies(mat, len(lays32), torch.bfloat16)
+                bf16_csr = _bf16_csr(csrs16, x, spec["plain"](lays32[0], x))
+                del csrs16
             else:
                 library_ms = time_launches(lambda a, v: a @ v,
                                            [(c, x) for c in csrs], 200)
@@ -767,7 +858,9 @@ def kernel_times(prob) -> dict:
             bound_ms, bound_by, nbytes = kernel_bound_ms(
                 mat, 2 if fast else 4)
             lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-            bsr_txt = ("" if fast else f", BSR (L2-warm) {bsr_ms:.4f} ms"
+            bsr_txt = (f", bf16 CSR (y in bf16, not this function) "
+                       f"{bf16_csr}" if fast
+                       else f", BSR (L2-warm) {bsr_ms:.4f} ms"
                        if bsr_ms is not None else f", BSR refused: {bsr_why}")
             print(f"{name:17s} {orient:3s} {mat.block_shape}: kernel "
                   f"{ms:.4f} ms (L2-warm {warm_ms:.4f} ms), plain "
@@ -777,6 +870,7 @@ def kernel_times(prob) -> dict:
             out[(name, orient)] = dict(ms=ms, warm_ms=warm_ms,
                                        plain_ms=plain_ms,
                                        library_ms=library_ms, bsr_ms=bsr_ms,
+                                       bf16_csr=bf16_csr,
                                        bound_ms=bound_ms, bound_by=bound_by)
         del lays32, csrs, bsr
     return out
@@ -822,7 +916,7 @@ def _counted_solve(qp, params):
 
 def rest_of_solve(bench_qp, seed: int = REST_SEED) -> None:
     qp = block_random_lp(**MODERATE, seed=seed)
-    ref = highs_objective(qp)
+    ref = moderate_refs([seed])[seed]
     for label, kw in REST:
         print(f"moderate LP seed {seed}, {label}:")
         r, extra = _counted_solve(
@@ -947,8 +1041,8 @@ def batched_moderate() -> None:
     instance OPTIMAL within 1e-4(1+|ref|) of HiGHS on its own bounds, its
     dual bound at most HiGHS + 1e-4(1+|ref|)."""
     qp, lbs, ubs = moderate_instances()
-    refs = np.array([highs_bounded(qp, lbs[i], ubs[i])
-                     for i in range(len(lbs))])
+    refs = np.array(in_threads(highs_bounded, [(qp, lbs[i], ubs[i])
+                                               for i in range(len(lbs))]))
     for dtype in (torch.float32, torch.float64):
         reset_counters()
         t0 = time.perf_counter()
@@ -1378,8 +1472,7 @@ class _CallLog:
         fj_device.device_feasibility_jump = self._fj
 
     def counts(self) -> dict:
-        launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
-        launches[SPMM["name"]] = SPMM["wrapper"].launches
+        launches = _launches()
         node_lps = sum(n for _, _, n in self.batches)
         seconds = sum(t1 - t0 for t0, t1, _ in self.batches)
         return dict(
@@ -1540,6 +1633,376 @@ def mip_path(errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. The front end: MPS I/O, Model/Solver, the CLI, math_opt, knapsack and
+#     set cover
+# ---------------------------------------------------------------------------
+
+FRONTEND_DIR = ROOT / "build" / "frontend"
+# The CLI's moderate LP and battery MIP, and the glop route's LP: the
+# host simplex (a copy of the JAX package's) ends ABNORMAL on the 2048^2
+# moderate LPs, as on every LP of 256 rows or more tried
+CLI_LP_SEED = 1
+GLOP_LP = dict(m=128, n=256, num_blocks=8, block_shape=(8, 128), seed=1)
+CLI_MIP = "gap_20x5_s10"
+DP_ITEMS, DP_CAPACITY, DP_MAX = 1000, 1_000_000, 10_000
+MULTI_KNAPSACK = dict(dims=3, items=40, seed=5)
+COVER_MIP = "set_cover_150x60_s1"
+
+
+class _Results:
+    """For its length, wraps ``module.solve`` (a package attribute that the
+    front end imports at call time) to keep each call's result."""
+
+    def __init__(self, module):
+        self.module, self.results = module, []
+
+    def __enter__(self):
+        self._solve = inner = self.module.solve
+
+        def solve_(*a, **k):
+            r = inner(*a, **k)
+            self.results.append(r)
+            return r
+        self.module.solve = solve_
+        return self
+
+    def __exit__(self, *exc):
+        self.module.solve = self._solve
+
+
+def _same_qp(a: QuadraticProgram, b: QuadraticProgram) -> list:
+    """The fields of two QPs that differ (names aside); the matrices must
+    have the same CSR arrays."""
+    bad = [f for f in ("objective_vector", "constraint_lower",
+                       "constraint_upper", "variable_lower", "variable_upper")
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    ma, mb = sp.csr_matrix(a.constraint_matrix), sp.csr_matrix(
+        b.constraint_matrix)
+    if not (ma.shape == mb.shape and all(
+            np.array_equal(getattr(ma, f), getattr(mb, f))
+            for f in ("indptr", "indices", "data"))):
+        bad.append("constraint_matrix")
+    if a.objective_constant != b.objective_constant or (
+            a.maximize != b.maximize):
+        bad.append("objective_constant/maximize")
+    return bad
+
+
+def mps_round_trip(bench_qp):
+    """(a) The bench LP written with ``write_mps``, read back with
+    ``Model.import_from_mps_file`` and ``to_qp``: equal to the generated QP
+    exactly.  Returns the imported Model."""
+    FRONTEND_DIR.mkdir(parents=True, exist_ok=True)
+    path = FRONTEND_DIR / "bench.mps"
+    t0 = time.perf_counter()
+    write_mps(bench_qp, str(path))
+    t_write = time.perf_counter() - t0
+    size = path.stat().st_size
+    t0 = time.perf_counter()
+    model = Model.import_from_mps_file(str(path))
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qp = model.to_qp()
+    t_qp = time.perf_counter() - t0
+    path.unlink()
+    bad = _same_qp(bench_qp, qp)
+    print(f"MPS round trip of the bench LP ({bench_qp.constraint_matrix.nnz}"
+          f" nonzeros): {size} bytes; write_mps {t_write:.3f} s, "
+          f"Model.import_from_mps_file {t_read:.3f} s, to_qp {t_qp:.3f} s; "
+          f"fields that differ: {bad or 'none'}", flush=True)
+    require(not bad, f"the MPS round trip changed the bench LP: {bad}")
+    return model
+
+
+def front_end_bench(model, bench_qp) -> dict:
+    """(b) ``Solver("pdlp")`` on the imported bench model at the bench's
+    parameters, against ``pdlp.solve`` on the generated QP: the same
+    termination and iterations, the solutions bit for bit, and both SpMV
+    kernels launched by the front end's solve.  Returns its launches."""
+    kw = dict(iteration_limit=BENCH_ITERATION_LIMIT, block_shape=(8, 128))
+    torch.cuda.synchronize()
+    reset_counters()
+    with _Results(pdlp_pkg) as log:
+        t0 = time.perf_counter()
+        s = Solver("pdlp")
+        status = s.solve(model, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = _launches()
+    r = log.results[-1]
+    ref = solve(bench_qp, PdhgParams(dtype=torch.float32, **kw))
+    same = (np.array_equal(r.primal_solution, ref.primal_solution)
+            and np.array_equal(r.dual_solution, ref.dual_solution))
+    print(f"Solver('pdlp') on the imported bench model: {status.name} "
+          f"({r.termination_reason.name} after {r.iterations} iterations, "
+          f"dtype {r.primal_solution.dtype}), {dt:.3f} s, objective "
+          f"{s.objective_value!r}; pdlp.solve on the generated QP: "
+          f"{ref.termination_reason.name} after {ref.iterations} "
+          f"iterations, {ref.solve_time_sec:.3f} s, objective "
+          f"{ref.primal_objective!r}; solutions bit "
+          f"for bit: {same}; launches {launches}", flush=True)
+    require(r.termination_reason == ref.termination_reason
+            and r.iterations == ref.iterations == BENCH_ITERATION_LIMIT,
+            "the front end's bench solve ended otherwise than pdlp.solve's")
+    require(same, "the front end's bench solution differs from pdlp.solve's")
+    require(s.objective_value == ref.primal_objective,
+            "the front end's objective differs from pdlp.solve's")
+    require(launches["block_spmv_exact"] > 0
+            and launches["block_spmv_fast"] > 0,
+            f"the front end's solve did not launch both SpMVs: {launches}")
+    return launches
+
+
+def _cli(label: str, path: Path, solver: str, sol: Path = None) -> tuple:
+    """``python -m ortools_tpu_torch solve`` in a subprocess from the
+    checkout; returns (status, objective, seconds)."""
+    cmd = [sys.executable, "-m", "ortools_tpu_torch", "solve", "--input",
+           str(path), "--solver", solver]
+    if sol is not None:
+        cmd += ["--sol_file", str(sol)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    lines = dict(ln.split(":", 1) for ln in proc.stdout.splitlines()
+                 if ":" in ln)
+    status = lines.get("Status", "").strip()
+    obj = float(lines["Objective"]) if "Objective" in lines else math.nan
+    print(f"python -m ortools_tpu_torch solve --solver {solver} ({label}): "
+          f"exit {proc.returncode} in {dt:.3f} s (a new process: torch "
+          f"import, kernel load, MPS read, solve); Status {status}, "
+          f"Objective {obj!r}; {lines.get('Parse time', '').strip()}",
+          flush=True)
+    require(proc.returncode == 0 and status == "OPTIMAL",
+            f"the CLI's {solver} run failed: {proc.stderr[-2000:]}")
+    return status, obj, dt
+
+
+def cli_runs() -> None:
+    """(c) The CLI as users run it, kernels built: moderate LP seed
+    ``CLI_LP_SEED`` under pdlp (OPTIMAL against HiGHS, the .sol file's
+    values checked against the rows and bounds), GLOP_LP under glop
+    (OPTIMAL at HiGHS's objective), and ``CLI_MIP`` (INTORG markers) under
+    mip, OPTIMAL at milp's objective."""
+    FRONTEND_DIR.mkdir(parents=True, exist_ok=True)
+    lp = block_random_lp(**MODERATE, seed=CLI_LP_SEED)
+    lp_path = FRONTEND_DIR / "moderate.mps"
+    write_mps(lp, str(lp_path))
+    sol = FRONTEND_DIR / "moderate.sol"
+    ref = moderate_refs([CLI_LP_SEED])[CLI_LP_SEED]
+    _, obj, _ = _cli(f"moderate LP seed {CLI_LP_SEED}", lp_path, "pdlp", sol)
+    rows = [ln.split() for ln in sol.read_text().splitlines()]
+    names = [r[0] for r in rows[1:]]
+    x = np.array([float(r[1]) for r in rows[1:]])
+    require(rows[0][0] == "=obj=" and len(set(names)) == len(x)
+            == lp.num_variables, "the .sol file does not hold every variable")
+    ax = lp.constraint_matrix @ x
+    row_viol = float(np.max(ax - lp.constraint_upper, initial=0.0))
+    bound_viol = float(max(np.max(lp.variable_lower - x, initial=0.0),
+                           np.max(x - lp.variable_upper, initial=0.0)))
+    scale = 1.0 + float(np.max(np.abs(lp.constraint_upper)))
+    # the f32 solve's values, unscaled: a bound holds to f32 rounding
+    bscale = 1.0 + float(np.max(np.abs(lp.variable_upper)))
+    rel = abs(obj - ref) / (1 + abs(ref))
+    print(f"  pdlp: HiGHS {ref!r} (rel {rel:.2e}); .sol: {len(x)} values, "
+          f"largest row violation {row_viol:.3e} (<= {1e-4 * scale:.3e}), "
+          f"bound violation {bound_viol:.3e} (<= {1e-5 * bscale:.3e}), c.x "
+          f"{float(lp.objective_vector @ x)!r}", flush=True)
+    require(rel <= 1e-4, "the CLI's pdlp objective disagrees with HiGHS")
+    require(row_viol <= 1e-4 * scale and bound_viol <= 1e-5 * bscale,
+            "the CLI's pdlp solution violates the rows or bounds")
+    glp = block_random_lp(**GLOP_LP)
+    glp_path = FRONTEND_DIR / "glop.mps"
+    write_mps(glp, str(glp_path))
+    gref = highs_objective(glp)
+    _, gobj, _ = _cli(f"block_random_lp {GLOP_LP}", glp_path, "glop")
+    print(f"  glop: HiGHS {gref!r} (rel {abs(gobj - gref) / (1 + abs(gref)):.2e})")
+    require(abs(gobj - gref) <= 1e-9 * (1 + abs(gref)),
+            "the CLI's glop objective disagrees with HiGHS")
+    mqp = battery()[CLI_MIP]
+    mip_path_ = FRONTEND_DIR / f"{CLI_MIP}.mps"
+    write_mps(mqp, str(mip_path_))
+    require("'INTORG'" in mip_path_.read_text(),
+            "the MIP's MPS file has no INTORG marker")
+    mref, msg = highs_mip(mqp)
+    _, mobj, _ = _cli(CLI_MIP, mip_path_, "mip")
+    print(f"  mip: milp {mref!r} ({msg})")
+    require(mref is not None and abs(mobj - mref) <= 1e-6 * (1 + abs(mref)),
+            "the CLI's mip objective disagrees with milp")
+
+
+def math_opt_pdlp() -> dict:
+    """(d) ``math_opt.solve(..., PDLP)`` on moderate LP seed
+    ``CLI_LP_SEED``, built through math_opt's API: OPTIMAL against HiGHS.
+    Returns its launches."""
+    lp = block_random_lp(**MODERATE, seed=CLI_LP_SEED)
+    mo = math_opt.Model(name="moderate")
+    xs = [mo.add_variable(lb=lo, ub=hi)
+          for lo, hi in zip(lp.variable_lower, lp.variable_upper)]
+    a = sp.csr_matrix(lp.constraint_matrix)
+    for i in range(lp.num_constraints):
+        k = slice(a.indptr[i], a.indptr[i + 1])
+        mo.add_linear_constraint(
+            LinearExpr(dict(zip(a.indices[k].tolist(), a.data[k].tolist()))),
+            ub=float(lp.constraint_upper[i]))
+    mo.minimize(LinearExpr(dict(enumerate(lp.objective_vector.tolist()))))
+    ref = moderate_refs([CLI_LP_SEED])[CLI_LP_SEED]
+    reset_counters()
+    t0 = time.perf_counter()
+    r = math_opt.solve(mo, math_opt.SolverType.PDLP)
+    dt = time.perf_counter() - t0
+    launches = _launches()
+    rel = abs(r.objective_value() - ref) / (1 + abs(ref))
+    print(f"math_opt.solve(PDLP) on moderate LP seed {CLI_LP_SEED}: "
+          f"{r.termination.reason.name} {r.objective_value()!r}, HiGHS "
+          f"{ref!r} (rel {rel:.2e}), {dt:.3f} s; value of x0 "
+          f"{r.value(xs[0])!r}; launches {launches}", flush=True)
+    require(r.termination.reason == math_opt.TerminationReason.OPTIMAL
+            and rel <= 1e-4, "math_opt's PDLP solve disagrees with HiGHS")
+    return launches
+
+
+def numpy_knapsack(p, w, cap) -> int:
+    """The value-only knapsack DP in numpy (int64), the reference."""
+    dp = np.zeros(cap + 1, dtype=np.int64)
+    cand = np.empty_like(dp)
+    for wi, pi in zip(w, p):
+        if wi <= cap:
+            np.add(dp[:cap + 1 - wi], pi, out=cand[wi:])
+            np.maximum(dp[wi:], cand[wi:], out=dp[wi:])
+    return int(dp[cap])
+
+
+def dp_knapsack_card() -> None:
+    """(d) ``dp_knapsack_torch`` at DP_ITEMS items, capacity DP_CAPACITY:
+    the table under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+    read inside raises), the value against numpy; then, warm, a whole
+    call's time and peak memory, and under ``torch.profiler`` the table's
+    device kernels per item and their summed device time.  (More than a
+    thousand launches fill the launch queue, so events around the table
+    time the host's enqueue, not the card.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(0)
+    w = rng.integers(1, DP_MAX + 1, DP_ITEMS)
+    p = rng.integers(1, DP_MAX + 1, DP_ITEMS)
+    t0 = time.perf_counter()
+    want = numpy_knapsack(p.tolist(), w.tolist(), DP_CAPACITY)
+    t_np = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table = dp_knapsack_table(p, w, DP_CAPACITY)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = int(table[-1])
+    del table
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    again = dp_knapsack_torch(p, w, DP_CAPACITY)
+    t_call = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dp_knapsack_table(p, w, DP_CAPACITY)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    seen = (f"device {device_ms:.3f} ms summed over {len(kernels)} kernels,"
+            f" {len(kernels) / DP_ITEMS:.3f} an item (torch.profiler)"
+            if kernels else "the profiler saw no device kernel: device time "
+            "and kernels per item not measured")
+    print(f"dp_knapsack_torch, {DP_ITEMS} items, capacity {DP_CAPACITY}, "
+          f"weights and profits 1-{DP_MAX} (seed 0): {got} (numpy {want}, "
+          f"{t_np:.3f} s); the table under sync debug mode 'error' raised "
+          f"nothing; a whole warm call {t_call * 1e3:.3f} ms (host clock, "
+          f"one read at the end), peak memory {peak} bytes; {seen}",
+          flush=True)
+    require(got == want == again, "dp_knapsack_torch disagrees with numpy")
+
+
+def knapsack_and_cover() -> dict:
+    """(d) ``KnapsackSolver``'s multi-dimensional MIP fallback and
+    ``solve_set_cover_mip`` on COVER_MIP's matrix, each OPTIMAL at milp's
+    objective.  Returns their launches."""
+    total = {}
+    spec = MULTI_KNAPSACK
+    rng = np.random.default_rng(spec["seed"])
+    p = rng.integers(1, 100, spec["items"])
+    w = rng.integers(1, 50, (spec["dims"], spec["items"]))
+    c = (w.sum(axis=1) * 3) // 10
+    ref = milp(-p.astype(float), constraints=LinearConstraint(
+        w.astype(float), -np.inf, c.astype(float)), bounds=Bounds(0, 1),
+        integrality=np.ones(spec["items"]))
+    reset_counters()
+    ks = KnapsackSolver(KnapsackSolver.KNAPSACK_MULTIDIMENSION_CBC_MIP_SOLVER)
+    ks.init(p.tolist(), w.tolist(), c.tolist())
+    with _Results(mip) as log:
+        t0 = time.perf_counter()
+        value = ks.solve()
+        dt = time.perf_counter() - t0
+    _add(total, _launches())
+    sel = np.array([ks.best_solution_contains(i)
+                    for i in range(spec["items"])])
+    r = log.results[-1]
+    print(f"KnapsackSolver multi-dimensional ({spec}): {r.status.name} "
+          f"{value}, milp {-ref.fun!r}, {r.num_nodes} nodes, {dt:.3f} s; "
+          f"launches {_launches()}", flush=True)
+    require(r.status.name == "OPTIMAL" and value == round(-ref.fun)
+            and int(p[sel].sum()) == value
+            and bool(np.all(w[:, sel].sum(axis=1) <= c)),
+            "the multi-dimensional knapsack disagrees with milp")
+    qp = battery()[COVER_MIP]
+    a = sp.csc_matrix(qp.constraint_matrix)
+    require(not qp.maximize and bool(np.all(a.data == 1.0))
+            and bool(np.all(qp.constraint_lower == 1.0)),
+            f"{COVER_MIP} is not a set cover")
+    model = SetCoverModel()
+    for j in range(a.shape[1]):
+        model.add_empty_subset(float(qp.objective_vector[j]))
+        for e in a.indices[a.indptr[j]:a.indptr[j + 1]]:
+            model.add_element_to_last_subset(int(e))
+    cref, msg = highs_mip(qp)
+    reset_counters()
+    with _Results(mip) as log:
+        t0 = time.perf_counter()
+        chosen = solve_set_cover_mip(model)
+        dt = time.perf_counter() - t0
+    _add(total, _launches())
+    r = log.results[-1]
+    cost = sum(model.costs[j] for j in chosen or [])
+    covered = set().union(*(model.subsets[j] for j in chosen or []))
+    print(f"solve_set_cover_mip on {COVER_MIP}'s matrix: {r.status.name}, "
+          f"{len(chosen or [])} subsets, cost {cost!r}, milp {cref!r} "
+          f"({msg}), {r.num_nodes} nodes, {dt:.3f} s; launches "
+          f"{_launches()}", flush=True)
+    require(r.status.name == "OPTIMAL" and cref is not None
+            and abs(cost - cref) <= 1e-6 * (1 + abs(cref))
+            and covered == set(range(model.num_elements)),
+            "solve_set_cover_mip disagrees with milp")
+    return total
+
+
+def front_end(bench_qp) -> dict:
+    """Phase 10.  Returns the launches of the front end's in-process
+    solves (the CLI's subprocesses count their own)."""
+    model = mps_round_trip(bench_qp)
+    launches = front_end_bench(model, bench_qp)
+    del model
+    cli_runs()
+    _add(launches, math_opt_pdlp())
+    dp_knapsack_card()
+    _add(launches, knapsack_and_cover())
+    print(f"launches on the front end (in this process): {launches}",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1618,6 +2081,10 @@ def main() -> int:
           "mip.solve under the defaults")
     mip_launches = mip_path(errs)
 
+    phase("10. the front end: MPS round trip at full width, Solver('pdlp') "
+          "on the imported bench LP, the CLI, math_opt, knapsack, set cover")
+    front_launches = front_end(bench_qp)
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -1628,8 +2095,9 @@ def main() -> int:
             max_abs_err=errs[name], ms=a["ms"], plain_ms=a["plain_ms"],
             bound_ms=a["bound_ms"], bound_by=a["bound_by"],
             library_ms=a["library_ms"], warm_ms=a["warm_ms"],
-            bsr_ms=a["bsr_ms"], transpose=at,
-            mip_path_launches=mip_launches[name], ok=True))
+            bsr_ms=a["bsr_ms"], bf16_csr=a["bf16_csr"], transpose=at,
+            mip_path_launches=mip_launches[name],
+            frontend_launches=front_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -1639,7 +2107,8 @@ def main() -> int:
         library_ms=a["library_ms"], warm_ms=a["warm_ms"], batch=BATCH,
         gathered_bytes=a["gathered_bytes"], transpose=spmm["A^T"],
         f64=[spmm["f64 A"], spmm["f64 A^T"]],
-        mip_path_launches=mip_launches[SPMM["name"]], ok=True))
+        mip_path_launches=mip_launches[SPMM["name"]],
+        frontend_launches=front_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

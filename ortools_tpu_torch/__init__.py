@@ -13,6 +13,13 @@ its block SpMM kernel (``ops/csrc/block_spmm.cu``), and the batched
 branch-and-bound MIP solve (``mip.solve``) with the device feasibility jump
 (``sat.fj_device``) and the host modules it needs (copies of the JAX
 package's, with the native small-LP core ``_native/smalllp.cc``).
+
+The modelling front end over them: MPS I/O (``models.mps``, a copy), the
+MPSolver-style ``linear_solver.Model``/``Solver`` (pdlp, glop and mip
+routes; ``Solver(solver_id, device=...)``), ``math_opt``, the knapsack
+and set-cover solvers (``algorithms``, with ``dp_knapsack_torch``) and the
+command line, ``python -m ortools_tpu_torch solve --input X.mps``
+(``cli``, ``__main__``).
 """
 
 import torch

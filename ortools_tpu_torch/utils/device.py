@@ -14,3 +14,10 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def lp_dtype(device: torch.device) -> torch.dtype:
+    """The LP dtype of the front end's routes on ``device``: float64 where
+    the backend supports it (the CPU), float32 on the card, the JAX
+    package's x64 rule."""
+    return torch.float64 if device.type == "cpu" else torch.float32

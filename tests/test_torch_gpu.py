@@ -582,3 +582,28 @@ def test_mip_solve_with_pdhg_node_lps_on_card(cuda, monkeypatch):
     assert batches
     assert r.status.name == "OPTIMAL"
     assert abs(r.objective_value - (-ref.fun)) <= 1e-4 * (1 + abs(ref.fun))
+
+
+@pytest.mark.gpu
+def test_front_end_pdlp_on_card_equals_pdlp_solve(cuda):
+    """``Solver("pdlp")`` on a Model, on the card, against ``pdlp.solve``
+    on the same QP with the route's parameters (float32): the same
+    termination and iterations, and the solutions bit for bit."""
+    from ortools_tpu_torch.linear_solver import Model, MPSolverStatus, Solver
+    from ortools_tpu_torch.models.lp import random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+
+    qp = random_lp(256, 256, density=0.5, seed=11)
+    model = Model.from_qp(qp)
+    s = Solver("pdlp", device=cuda)
+    status = s.solve(model, block_shape=(8, 128), iteration_limit=40000)
+    ref = solve(model.to_qp(), PdhgParams(dtype=torch.float32,
+                                          block_shape=(8, 128),
+                                          iteration_limit=40000),
+                device=cuda)
+    assert status == MPSolverStatus.OPTIMAL
+    assert ref.termination_reason.name == "OPTIMAL"
+    np.testing.assert_array_equal(s._values, ref.primal_solution)
+    np.testing.assert_array_equal(s._duals, ref.dual_solution)
+    np.testing.assert_array_equal(s._reduced_costs, ref.reduced_costs)
+    assert s.objective_value == ref.primal_objective

@@ -4,7 +4,8 @@ package's originals, on the CPU.
 Each copy (``utils/domain.py``, ``utils/status.py``, ``sat/model_ir.py``,
 ``sat/feasibility_jump.py``, ``mip/propagation.py``, ``mip/cuts.py``,
 ``glop/simplex.py``, ``glop/native_simplex.py`` with ``_native/smalllp.cc``,
-``mip/heuristics.py`` and ``models/mip_generators.py``) must have the
+``mip/heuristics.py``, ``models/mip_generators.py``, and the front end's
+``models/mps.py``) must have the
 original's text apart from its import lines, and give the original's
 results exactly, bit for bit, on seeded inputs taken from the originals'
 own tests (tests/test_domain.py, test_feasibility_jump.py, test_mip.py's
@@ -53,7 +54,7 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIES = ["utils/domain.py", "utils/status.py", "sat/model_ir.py",
           "sat/feasibility_jump.py", "mip/propagation.py", "mip/cuts.py",
           "glop/simplex.py", "glop/native_simplex.py", "_native/smalllp.cc",
-          "mip/heuristics.py", "models/mip_generators.py"]
+          "mip/heuristics.py", "models/mip_generators.py", "models/mps.py"]
 _IMPORT = re.compile(r"^\s*(from|import)\s+ortools_tpu_torch(\.|\s)")
 
 

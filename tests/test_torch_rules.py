@@ -8,7 +8,11 @@ import pytest
 import torch
 
 import ortools_tpu_torch  # noqa: F401  (sets the precision pins)
-from ortools_tpu_torch import mip
+from ortools_tpu_torch import cli, math_opt, mip
+from ortools_tpu_torch.algorithms import KnapsackSolver, SetCoverModel
+from ortools_tpu_torch.algorithms.knapsack import dp_knapsack_torch
+from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
+from ortools_tpu_torch.linear_solver import Model, Solver
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.lp import random_lp
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
@@ -45,7 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "ortools_tpu"), (path, mod)
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     qp = random_lp(10, 10, density=0.3, seed=0)
@@ -65,6 +69,34 @@ def test_entry_points_raise_without_a_card():
     a = np.ones((2, 3))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_feasibility_jump(a, np.ones(2), np.full(2, np.inf))
+    # the front end
+    model = Model.from_qp(random_lp(10, 10, density=0.3, seed=0))
+    for backend in ("pdlp", "mip"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Solver(backend).solve(model)
+    mo = math_opt.Model()
+    x = mo.add_variable(lb=0, ub=1)
+    mo.maximize(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        math_opt.solve(mo, math_opt.SolverType.PDLP)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dp_knapsack_torch([1, 2], [1, 1], 2)
+    ks = KnapsackSolver(KnapsackSolver.KNAPSACK_MULTIDIMENSION_CBC_MIP_SOLVER)
+    ks.init([3, 4], [[1, 2], [2, 1]], [2, 2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ks.solve()
+    cover = SetCoverModel()
+    cover.add_empty_subset(1.0)
+    cover.add_element_to_last_subset(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_set_cover_mip(cover)
+    # the CLI without --device: a non-zero exit with the same message, and
+    # nothing solved
+    path = tmp_path / "m.mps"
+    path.write_text(model.export_to_mps_string())
+    assert cli.main(["solve", "--input", str(path)]) != 0
+    out = capsys.readouterr()
+    assert "device='cpu'" in out.err and "Status" not in out.out
 
 
 def test_tf32_is_off_and_matmul_precision_highest():
