@@ -95,10 +95,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    set_cover_150x60_s1's matrix, OPTIMAL at milp's objective; with the
    launches of its in-process solves, the counters set to 0 just before
    each and read just after.
+11. The mesh (run before phase 8's lines): a one-rank NCCL group in this
+   process; the bench LP through ``solve(mesh=...)`` on a 1-D mesh and a
+   2-D (1, 1) mesh at phase 5's parameters, bit for bit the single path's
+   exact stream (for one rank the padding, the block order and the
+   collectives are the identity; the fast stream is exact under a mesh),
+   with the launch counters set to 0 just before each and read just after;
+   the majors' iter/s beside the single exact stream's (in turns), host
+   syncs and host-side collective calls per replayed major (the
+   collectives are captured in the graphs), and the collectives' device
+   time per major from ``torch.profiler``.  Then gloo ranks sharing the
+   card (``graft_entry.start_ranks``; the kernels were built in phase 2):
+   1-D on 2 ranks and 2-D (2, 2) on 4, moderate LP seed 1 in f32, OPTIMAL
+   within 1e-4·(1+|ref|) of HiGHS, every rank's result bit for bit rank
+   0's and bit for bit one process's solve whose products sum in the
+   mesh's order (``mesh_arithmetic_solve``), each rank's shard SpMVs
+   against their plain versions as in phase 3, and the iteration count
+   printed beside the single exact path's; the 2-D mesh again in f64, bit
+   for bit its one-process solve and within one major of the single exact
+   path's iteration count.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
-   path and on the front end, and the fast SpMV's bf16 CSR yardstick), the
-   total time, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+   path, on the front end and on the mesh path, and the fast SpMV's bf16
+   CSR yardstick), the total time, the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +129,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -2003,6 +2023,360 @@ def front_end(bench_qp) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11. The mesh: NCCL with one rank at full width, gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+
+MESHES = (((1,), ("shards",)), ((1, 1), ("row", "col")))
+GLOO_MESHES = (((2,), ("shards",)), ((2, 2), ("row", "col")))
+MESH_SEED = 1  # the moderate LP of the gloo ranks
+
+
+def _mesh_label(shape) -> str:
+    return f"{len(shape)}-D {shape}"
+
+
+def _same_result(r, ref) -> bool:
+    return (r.termination_reason == ref.termination_reason
+            and r.iterations == ref.iterations
+            and r.primal_objective == ref.primal_objective
+            and r.dual_objective == ref.dual_objective
+            and np.array_equal(r.primal_solution, ref.primal_solution)
+            and np.array_equal(r.dual_solution, ref.dual_solution))
+
+
+def mesh_majors(prob, psum, params):
+    """The solver's majors on one rank's ``prob`` under ``psum`` (None for
+    the single path), loaded with the initial state from the seed-0
+    power-iteration start."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    v0 = torch.randn(prob.c.shape[0], generator=g,
+                     dtype=torch.float64).to(prob.c)
+    sigma = pdlp_solver._make_power_iter(params, psum)(prob, v0)
+    majors = pdlp_solver._Majors(prob, params, psum)
+    majors.load(pdlp_solver._make_initial_state(params, psum)(prob, sigma))
+    return majors
+
+
+def collective_profile(majors) -> tuple:
+    """Device time (ms) and count of the NCCL kernels in one replay of the
+    major graph and the statistics graph, under torch.profiler, with the
+    other kernels' time beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    nccl_ms, nccl_n, other_ms = 0.0, 0, 0.0
+    for kind in ("main", "stats"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _graph(majors, kind, False).replay()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            if "nccl" in e.name.lower():
+                nccl_ms, nccl_n = nccl_ms + ms, nccl_n + 1
+            else:
+                other_ms += ms
+    return nccl_ms, nccl_n, other_ms
+
+
+def nccl_mesh(bench_qp) -> dict:
+    """Phase 11a: a one-rank NCCL group on the card.  The bench LP through
+    ``solve(mesh=...)``, 1-D and 2-D (1, 1), at phase 5's parameters, bit
+    for bit the single path's exact stream; the launch counters set to 0
+    just before each mesh solve and read just after.  Then the solver's
+    majors on each: iter/s beside the single path's exact stream (turns),
+    host syncs and host-side collective calls per replayed major, graphs
+    captured, and the collectives' device time per major from the
+    profiler.  Returns the mesh path's launches."""
+    import torch.distributed as dist
+
+    from ortools_tpu_torch.parallel import make_mesh
+
+    params = PdhgParams(iteration_limit=BENCH_ITERATION_LIMIT,
+                        record_iteration_stats=True, **BENCH_PARAMS)
+    exact = dataclasses.replace(params, stream_precision="exact")
+    store = Path(tempfile.mkdtemp(prefix="nccl-"))
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        ref = solve(bench_qp, exact)
+        print(f"single path, exact stream: {ref.termination_reason.name} "
+              f"after {ref.iterations} iterations, objective "
+              f"{ref.primal_objective!r}", flush=True)
+        total = {k: 0 for k in _launches()}
+        meshes = []
+        for shape, names in MESHES:
+            mesh = make_mesh(shape, names)
+            pdlp_solver.host_syncs = 0
+            reset_counters()
+            r = solve(bench_qp, params, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = _launches()
+            _add(total, launches)
+            streams = [rec["stream"] for rec in r.iteration_stats]
+            same = _same_result(r, ref)
+            print(f"mesh {_mesh_label(shape)} (NCCL, one rank): "
+                  f"{r.termination_reason.name} after {r.iterations} "
+                  f"iterations, objective {r.primal_objective!r}; bit for "
+                  f"bit the single exact path: {same}; majors exact "
+                  f"{streams.count('exact')} fast {streams.count('fast')}; "
+                  f"host syncs {pdlp_solver.host_syncs}; launches "
+                  f"{launches}", flush=True)
+            require(same, f"mesh {shape}: the one-rank NCCL solve differs "
+                    f"from the single path's exact stream")
+            require(launches["block_spmv_exact"] > 0,
+                    f"mesh {shape}: the exact SpMV was not launched")
+            meshes.append((shape, mesh))
+        mesh_rates(bench_qp, exact, meshes)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"launches on the mesh path (the NCCL solves): {total}",
+          flush=True)
+    return total
+
+
+def mesh_rates(bench_qp, params, meshes) -> None:
+    """Iter/s of the majors of the single exact path and of each one-rank
+    mesh, in turns (single, meshes, meshes reversed, single), with host
+    syncs and host-side collective calls per major; then each mesh's
+    graphs and its collectives under the profiler."""
+    runs = [("single", None, mesh_majors(
+        pdlp_solver.build_device_problem(bench_qp, params, "cuda"), None,
+        params))]
+    for shape, mesh in meshes:
+        prob, psum = pdlp_solver.build_mesh_problem(bench_qp, params, mesh)
+        mesh.calls = 0
+        majors = mesh_majors(prob, psum, params)
+        majors.major()  # captures the graphs
+        print(f"mesh {_mesh_label(shape)}: graphs captured "
+              f"{len(majors._graphs)}, collective calls before the first "
+              f"replay (power iteration, initial state, warm-up, capture) "
+              f"{mesh.calls}", flush=True)
+        runs.append((_mesh_label(shape), mesh, majors))
+    runs[0][2].major()
+    total = {label: [0.0, 0, 0] for label, _, _ in runs}
+    for label, mesh, majors in runs + runs[::-1]:
+        syncs0 = pdlp_solver.host_syncs
+        calls0 = mesh.calls if mesh is not None else 0
+        t0 = time.perf_counter()
+        for _ in range(TIMED_MAJORS):
+            majors.major()
+        torch.cuda.synchronize()
+        t = total[label]
+        t[0] += time.perf_counter() - t0
+        t[1] += pdlp_solver.host_syncs - syncs0
+        t[2] += (mesh.calls - calls0) if mesh is not None else 0
+        require(bool(torch.isfinite(majors.state.x).all()),
+                f"{label} majors gave a non-finite iterate")
+    freq = runs[0][2].freq
+    for label, (dt, syncs, calls) in total.items():
+        n = 2 * TIMED_MAJORS
+        print(f"{label}: {n * freq / dt:.1f} PDHG iter/s (exact stream, "
+              f"{dt / n * 1e3:.3f} ms per {freq}-step major); host syncs "
+              f"per major {syncs / n:.2f}; host-side collective calls per "
+              f"major {calls / n:.2f}", flush=True)
+        if label != "single":
+            require(syncs / n <= 1.0 + 1e-9 and calls == 0,
+                    f"{label}: a replayed major read the host more than "
+                    f"once or called a collective outside its graphs")
+    for label, mesh, majors in runs[1:]:
+        nccl_ms, nccl_n, other_ms = collective_profile(majors)
+        print(f"{label}: collectives' device time per major (profiler, one "
+              f"replay of the major and statistics graphs) {nccl_ms:.4f} ms"
+              f" in {nccl_n} NCCL kernels, beside {other_ms:.3f} ms of the "
+              f"other device work", flush=True)
+
+
+def _gloo_rank(shape, names) -> dict:
+    """One gloo rank of phase 11b, on the card it shares: the moderate LP
+    in f32 through ``solve(mesh=...)`` (launch counters set to 0 just
+    before, read just after), its shard's SpMVs against their plain
+    versions as in phase 3, and on the 2-D mesh the same solve in f64."""
+    from ortools_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(shape, names, device="cuda", backend="gloo")
+    qp = block_random_lp(**MODERATE, seed=MESH_SEED)
+    params = PdhgParams()
+    reset_counters()
+    r = solve(qp, params, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = _launches()
+    prob, _ = pdlp_solver.build_mesh_problem(qp, params, mesh)
+    errs: dict = {}
+    rank = tuple(mesh.coords)
+    for label, mat in (("A", prob.a), ("A^T", prob.at)):
+        check_matrix(f"rank {rank} shard {label}", mat.without_tiled(), errs)
+    r64 = (solve(qp, PdhgParams(dtype=torch.float64), mesh=mesh)
+           if len(shape) == 2 else None)
+    return dict(result=r, launches=launches, errs=errs, result64=r64)
+
+
+class _Coords:
+    """One rank's place on a mesh, without a process group: what
+    ``build_mesh_problem`` reads to cut out that rank's part."""
+
+    def __init__(self, shape, axis_names, coords):
+        self.shape, self.axis_names, self.coords = shape, axis_names, coords
+        self.size = math.prod(shape)
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+
+def _sum_in_order(parts: list) -> torch.Tensor:
+    # the gloo mesh's psum: the ranks' partials summed in the axis's order
+    # (two partials: one rounding, alike on the host and on the card)
+    return torch.stack(parts).sum(0)
+
+
+def mesh_arithmetic_solve(qp, params, shape, names):
+    """A one-process solve whose every product is the one the gloo mesh of
+    ``shape`` computes: each rank's part of A (``build_mesh_problem`` at
+    that rank's coordinates) times its piece of the vector by the kernel,
+    the partials summed in the axis's order, the segments concatenated.
+    Everything else is the single path's, so this solve differs from the
+    single path only in the products' order of summation, and from the
+    mesh's not at all: the mesh must give its result bit for bit."""
+    qpm = qp.as_minimization()
+    ranks = {c: pdlp_solver.build_mesh_problem(
+        qpm, params, _Coords(shape, names, c), "cuda")[0]
+        for c in np.ndindex(*shape)}
+    if len(shape) == 1:
+        def mv(x):
+            return _sum_in_order([p.a.matvec(x) for p in ranks.values()])
+
+        def rmv(y):
+            return _sum_in_order([p.at.matvec(y) for p in ranks.values()])
+    else:
+        nr, nc = shape
+        seg_m, seg_n = ranks[(0, 0)].a.padded_shape
+
+        def mv(x):
+            return torch.cat([_sum_in_order([
+                ranks[(r, c)].a.matvec(x[c * seg_n:(c + 1) * seg_n])
+                for c in range(nc)]) for r in range(nr)])
+
+        def rmv(y):
+            return torch.cat([_sum_in_order([
+                ranks[(r, c)].at.matvec(y[r * seg_m:(r + 1) * seg_m])
+                for r in range(nr)]) for c in range(nc)])
+
+    make_matvecs = pdlp_solver._make_matvecs
+    pdlp_solver._make_matvecs = lambda *a, **k: pdlp_solver._Matvecs(mv, rmv)
+    try:
+        single_shape = pdlp_solver.build_device_problem(
+            qpm, params, "cpu").c.shape
+        require(ranks[(0,) * len(shape)].c.shape == single_shape,
+                f"mesh {shape}: the padded lengths are not the single "
+                f"path's")
+        return solve(qp, dataclasses.replace(params,
+                                             stream_precision="exact"))
+    finally:
+        pdlp_solver._make_matvecs = make_matvecs
+
+
+def gloo_ranks() -> dict:
+    """Phase 11b: 1-D on 2 gloo ranks and 2-D (2, 2) on 4, both at once on
+    the one card, on moderate LP seed 1.  In f32: OPTIMAL within
+    1e-4 (1 + |ref|) of HiGHS, every rank's result bit for bit rank 0's
+    and bit for bit ``mesh_arithmetic_solve``'s (one process, the mesh's
+    order of summation in every product), every shard's SpMVs within
+    phase 3's tolerances of their plain versions; the iteration count is
+    printed beside the single exact path's.  In f64 (2-D): bit for bit
+    its one-process solve too, and within one major (one termination
+    test) of the single exact path's count.  Returns the kernels' largest
+    shard errors."""
+    from ortools_tpu_torch import graft_entry
+
+    ref = moderate_refs([MESH_SEED])[MESH_SEED]
+    qp = block_random_lp(**MODERATE, seed=MESH_SEED)
+    t0 = time.perf_counter()
+    jobs = [(shape, names, graft_entry.start_ranks(
+        math.prod(shape), _gloo_rank, (shape, names), device="cuda",
+        backend="gloo", timeout=400)) for shape, names in GLOO_MESHES]
+    try:
+        p64 = PdhgParams(dtype=torch.float64)
+        single = solve(qp, PdhgParams(stream_precision="exact"))
+        single64 = solve(qp, dataclasses.replace(p64,
+                                                 stream_precision="exact"))
+        same_sums = {shape: mesh_arithmetic_solve(qp, PdhgParams(), shape,
+                                                  names)
+                     for shape, names, _ in jobs}
+        same_sums64 = {shape: mesh_arithmetic_solve(qp, p64, shape, names)
+                       for shape, names, _ in jobs if len(shape) == 2}
+        print(f"single path, exact stream: f32 {single.iterations} "
+              f"iterations, f64 {single64.iterations}; one process with "
+              f"each mesh's order of summation: f32 "
+              f"{ {k: v.iterations for k, v in same_sums.items()} }, f64 "
+              f"{ {k: v.iterations for k, v in same_sums64.items()} }",
+              flush=True)
+        results = [(shape, job.join()) for shape, _, job in jobs]
+        print(f"both meshes done {time.perf_counter() - t0:.1f} s after "
+              f"their ranks started", flush=True)
+    finally:
+        for _, _, job in jobs:
+            job.kill()
+    errs: dict = {}
+    for shape, ranks in results:
+        r0 = ranks[0]["result"]
+        rel = abs(r0.primal_objective - ref) / (1 + abs(ref))
+        alike = all(_same_result(k["result"], r0) for k in ranks[1:])
+        same = _same_result(r0, same_sums[shape])
+        ratio = r0.iterations / single.iterations
+        print(f"mesh {_mesh_label(shape)} on {len(ranks)} gloo ranks sharing"
+              f" the card, f32: {r0.termination_reason.name} after "
+              f"{r0.iterations} iterations (single exact path "
+              f"{single.iterations}, ratio {ratio:.3f}, within a quarter: "
+              f"{abs(ratio - 1) <= 0.25}), objective {r0.primal_objective!r}"
+              f" HiGHS {ref!r} (rel {rel:.2e}); ranks bit-identical: "
+              f"{alike}; bit for bit the one-process solve with its order "
+              f"of summation: {same}; launches by rank "
+              f"{[k['launches'] for k in ranks]}", flush=True)
+        require(r0.termination_reason == TerminationReason.OPTIMAL,
+                f"mesh {shape}: not OPTIMAL")
+        require(rel <= 1e-4, f"mesh {shape}: objective disagrees with HiGHS")
+        require(alike, f"mesh {shape}: the ranks' results differ")
+        require(same, f"mesh {shape}: the result differs from the one-"
+                f"process solve with the mesh's order of summation")
+        require(all(k["launches"]["block_spmv_exact"] > 0 for k in ranks),
+                f"mesh {shape}: a rank launched no exact SpMV")
+        r64 = ranks[0]["result64"]
+        if r64 is not None:
+            rel64 = abs(r64.primal_objective - single64.primal_objective) / (
+                1 + abs(single64.primal_objective))
+            alike64 = all(_same_result(k["result64"], r64) for k in ranks)
+            same64 = _same_result(r64, same_sums64[shape])
+            print(f"mesh {_mesh_label(shape)}, f64: "
+                  f"{r64.termination_reason.name} after {r64.iterations} "
+                  f"iterations (single exact path {single64.iterations}), "
+                  f"objective rel to the single path {rel64:.2e}; ranks "
+                  f"bit-identical: {alike64}; bit for bit the one-process "
+                  f"solve with its order of summation: {same64}", flush=True)
+            # f64 leaves the count to the termination test's period: the
+            # test runs once a major, so a residual that crosses the
+            # tolerance a rounding earlier or later moves it by one major.
+            require(r64.termination_reason == TerminationReason.OPTIMAL
+                    and abs(r64.iterations - single64.iterations)
+                    <= p64.termination_check_frequency and rel64 <= 1e-6,
+                    f"mesh {shape}, f64: {r64.iterations} iterations, more "
+                    f"than a major from the single path's "
+                    f"{single64.iterations}")
+            require(alike64 and same64, f"mesh {shape}, f64: the ranks' "
+                    f"results differ, or differ from the one-process solve")
+        for k in ranks:
+            for name, e in k["errs"].items():
+                errs[name] = max(errs.get(name, 0.0), e)
+    return errs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2085,6 +2459,11 @@ def main() -> int:
           "on the imported bench LP, the CLI, math_opt, knapsack, set cover")
     front_launches = front_end(bench_qp)
 
+    phase("11. the mesh: NCCL with one rank at full width, gloo ranks "
+          "sharing the card")
+    mesh_launches = nccl_mesh(bench_qp)
+    shard_errs = gloo_ranks()
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -2097,7 +2476,9 @@ def main() -> int:
             library_ms=a["library_ms"], warm_ms=a["warm_ms"],
             bsr_ms=a["bsr_ms"], bf16_csr=a["bf16_csr"], transpose=at,
             mip_path_launches=mip_launches[name],
-            frontend_launches=front_launches[name], ok=True))
+            frontend_launches=front_launches[name],
+            mesh_path_launches=mesh_launches[name],
+            mesh_shard_max_abs_err=shard_errs[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -2108,7 +2489,8 @@ def main() -> int:
         gathered_bytes=a["gathered_bytes"], transpose=spmm["A^T"],
         f64=[spmm["f64 A"], spmm["f64 A^T"]],
         mip_path_launches=mip_launches[SPMM["name"]],
-        frontend_launches=front_launches[SPMM["name"]], ok=True))
+        frontend_launches=front_launches[SPMM["name"]],
+        mesh_path_launches=mesh_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -4,8 +4,7 @@ The JAX package's fields and defaults, with ``dtype`` a ``torch.dtype``.
 Defaults reproduce the reference's proto defaults
 (``ortools/pdlp/solvers.proto:102-395``) except the restart strategy,
 ADAPTIVE_KKT (the cuPDLP scheme, PAPERS.md arXiv:2312.14832).  Left out:
-the mesh fields (``num_shards``, ``mesh_axis``), until the multi-device
-slice, and ``adaptive_step_size``, which no code of the JAX solver reads.
+``adaptive_step_size``, which no code of the JAX solver reads.
 """
 
 from __future__ import annotations
@@ -72,6 +71,10 @@ class PdhgParams:
     # -- device placement -------------------------------------------------
     dtype: torch.dtype = torch.float32
     block_shape: Optional[Tuple[int, int]] = None  # None = auto
+    # The JAX package's field: the mesh passed to ``solve`` sets the
+    # shards.  1 leaves it to the mesh; another value must be its size.
+    num_shards: int = 1
+    mesh_axis: str = "shards"  # the 1-D mesh axis the block list is split on
     # Block-row kernel layout (ops/tiled_spmv.py).  On a card the layout
     # is always attached, because the CUDA kernels are the only SpMV there;
     # False leaves out the bf16 copy and so the fast stream.  On the CPU,

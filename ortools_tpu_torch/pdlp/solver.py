@@ -1,8 +1,8 @@
-"""Restarted adaptive primal-dual hybrid gradient (PDLP), single device,
-in PyTorch (port of ``ortools_tpu/pdlp/solver.py``).
+"""Restarted adaptive primal-dual hybrid gradient (PDLP) in PyTorch (port
+of ``ortools_tpu/pdlp/solver.py``).
 
-Function for function the JAX module's single-device path, so that each
-function can be held against its twin on one shared problem and state:
+Function for function the JAX module, so that each function can be held
+against its twin on one shared problem and state:
 host rescaling and upload (``_ruiz_and_l2_rescale``,
 ``build_device_problem``), power iteration, the adaptive and the
 Malitsky-Pock PDHG steps, majors of ``termination_check_frequency`` steps,
@@ -40,7 +40,23 @@ What differs from the JAX module:
   (seed 0; it may be passed in) and the projection vectors of
   ``random_projection_seeds`` (seeds ``s`` and ``s + 1``, as the JAX
   module keys them).
-- Not ported yet, and refused with ``NotImplementedError``: meshes.
+- A mesh (``parallel.make_mesh``) is a group of ``torch.distributed``
+  ranks, each one device, and every rank runs this whole host program
+  (JAX runs one program under ``shard_map``).  Each rank holds its part
+  of the constraint matrix: a contiguous slice of the block list (1-D,
+  ``_place_problem``) or one cell of a row x col partition (2-D,
+  ``build_2d_problem``, ``Comm2D``); vectors are replicated, and the
+  products combine their partials with collectives (``_make_matvecs``).
+  So every device function takes the JAX module's ``psum`` argument.  The
+  host's decisions (restarts, termination, tail slots, polishing) read
+  only scalars that the collectives made bit-identical on every rank, and
+  ``v0`` and the projection vectors are drawn alike on every rank: a rank
+  that decided differently would leave the others waiting in a
+  collective.  The one input that differs between ranks, the clock, is
+  agreed on (``Mesh.any``) where a time limit is set.  With NCCL the
+  collectives are captured in the majors' CUDA graphs; gloo collectives
+  cannot be captured, so under gloo the slots run eagerly, on either
+  device.
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.ops import tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix, auto_block_shape
 from ortools_tpu_torch.ops.df32 import dot, sum_df32, vdot_df32, vmax, vnorm, vsum
+from ortools_tpu_torch.parallel.mesh import Mesh
 from ortools_tpu_torch.pdlp import trust_region
 from ortools_tpu_torch.pdlp.params import OptimalityNorm, PdhgParams, RestartStrategy
 from ortools_tpu_torch.utils.device import resolve_device
@@ -185,9 +202,29 @@ def _ruiz_and_l2_rescale(
     return d_r, d_c
 
 
+def _attach_layout(mat: BlockSparseMatrix, params: PdhgParams,
+                   fast: bool) -> BlockSparseMatrix:
+    """The block-row kernel layout: always on a card (the kernels are the
+    only SpMV there), on request on the CPU (plain versions).  With
+    ``fast`` the bf16 copy for the f32 fast stream."""
+    if mat.device.type == "cpu" and not params.use_tiled_spmv:
+        return mat
+    want_hi = (fast and params.use_tiled_spmv is not False
+               and mat.dtype == torch.float32
+               and params.stream_precision in ("auto", "mixed"))
+    return mat.with_tiled(hi=want_hi)
+
+
 def build_device_problem(
     qp: QuadraticProgram, params: PdhgParams, device="cuda",
+    pad_blocks_to_multiple_of: int = 1,
+    row_pad_multiple: int = 128, col_pad_multiple: int = 128,
 ) -> DeviceProblem:
+    """The scaled, padded problem on ``device``.  The mesh paths ask for
+    the block count padded to a multiple of the shards
+    (``pad_blocks_to_multiple_of``; such a matrix gets no kernel layout
+    here, its shards do) and for the padded lengths to be multiples of
+    ``row_pad_multiple`` and ``col_pad_multiple`` as well as of 128."""
     device = resolve_device(device)
     qp = qp.as_minimization()
     m, n = qp.num_constraints, qp.num_variables
@@ -202,26 +239,24 @@ def build_device_problem(
 
     block = params.block_shape or auto_block_shape(m, n, a.nnz)
     dtype = params.dtype
-    # Both logical dims padded to multiples of 128, so A (M, N) and its
-    # block transpose (N, M) agree on padded vector lengths.
-    mm = -(-max(m, 1) // 128) * 128
-    nn = -(-max(n, 1) // 128) * 128
+    # Both logical dims padded to multiples of 128 (and of the mesh's
+    # multiples), so A (M, N) and its block transpose (N, M) agree on
+    # padded vector lengths.
+    mm = -(-max(m, 1) // math.lcm(128, row_pad_multiple)) * math.lcm(
+        128, row_pad_multiple)
+    nn = -(-max(n, 1) // math.lcm(128, col_pad_multiple)) * math.lcm(
+        128, col_pad_multiple)
     dev_a = BlockSparseMatrix.from_scipy(
-        a_scaled, block_shape=block, dtype=dtype, padded_shape=(mm, nn),
-        device=device,
+        a_scaled, block_shape=block, dtype=dtype,
+        pad_blocks_to_multiple_of=pad_blocks_to_multiple_of,
+        padded_shape=(mm, nn), device=device,
     )
     # Aᵀ as the per-block transpose of A at block shape (bn, bm): the same
     # block count as A, so both SpMV passes stream the same bytes.
     dev_at = dev_a.block_transpose()
-    # The block-row kernel layout: always on a card (the kernels are the
-    # only SpMV there), on request on the CPU (plain versions).  The bf16
-    # copy serves the f32 fast stream only.
-    use_tiled = params.use_tiled_spmv
-    if device.type != "cpu" or use_tiled:
-        want_hi = (use_tiled is not False and dtype == torch.float32
-                   and params.stream_precision in ("auto", "mixed"))
-        dev_a = dev_a.with_tiled(hi=want_hi)
-        dev_at = dev_at.with_tiled(hi=want_hi)
+    if pad_blocks_to_multiple_of == 1:
+        dev_a = _attach_layout(dev_a, params, fast=True)
+        dev_at = _attach_layout(dev_at, params, fast=True)
 
     def padv(v, fill, size):
         out = np.full(size, fill, dtype=np.float64)
@@ -277,22 +312,82 @@ class _Matvecs(NamedTuple):
     rmatvec: Callable[[torch.Tensor], torch.Tensor]
 
 
+class _Psum(NamedTuple):
+    """The 1-D mode's combine: the sum over the mesh axis ``axis`` of the
+    ranks' full-length partial products, in place (JAX's
+    ``partial(jax.lax.psum, axis_name=axis)``)."""
+
+    mesh: Mesh
+    axis: str
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.psum(t, self.axis)
+
+
+class Comm2D(NamedTuple):
+    """2-D (row x col) mesh communication spec for the SpMV pair.
+
+    Rank (r, c) holds the blocks of A whose rows fall in row-range r and
+    cols in col-range c (equal contiguous ranges).  Iterate vectors stay
+    full-length and replicated (all elementwise math and dots are then
+    mesh-oblivious); the products communicate only segments:
+
+        y = all_gather_row( psum_col( A_rc @ x[c-range] ) )
+        x = all_gather_col( psum_row( A_rc^T @ y[r-range] ) )
+    """
+
+    row_axis: str
+    col_axis: str
+    seg_m: int  # padded rows per row range
+    seg_n: int  # padded cols per col range
+    mesh: Mesh
+
+
+def _capturable(psum) -> bool:
+    """Whether the products' collectives may go into a CUDA graph: none,
+    or NCCL's (gloo's run on the host)."""
+    return psum is None or psum.mesh.backend == "nccl"
+
+
 def _make_matvecs(a: BlockSparseMatrix, at: BlockSparseMatrix,
-                  fast: bool = False) -> _Matvecs:
-    """SpMV closures of one device; ``fast`` selects the bf16 stream
-    (exact ``matvec`` where no bf16 copy is attached)."""
-    if fast:
-        return _Matvecs(a.matvec_fast, at.matvec_fast)
-    return _Matvecs(a.matvec, at.matvec)
+                  psum=None, fast: bool = False) -> _Matvecs:
+    """SpMV closures.  ``psum`` selects the parallel mode: None (one
+    device), a ``_Psum`` (1-D block sharding: each rank holds a slice of
+    the block list, full-length partials summed over the axis) or a
+    ``Comm2D`` (row x col partition).  ``fast`` selects the bf16 stream
+    on one device (exact ``matvec`` where no bf16 copy is attached); under
+    a mesh the products are exact, as in the JAX module."""
+    if psum is None:
+        if fast:
+            return _Matvecs(a.matvec_fast, at.matvec_fast)
+        return _Matvecs(a.matvec, at.matvec)
+    if isinstance(psum, Comm2D):
+        comm, mesh = psum, psum.mesh
+        c = mesh.axis_index(comm.col_axis)
+        r = mesh.axis_index(comm.row_axis)
+
+        def mv(x):
+            x_c = x[c * comm.seg_n:(c + 1) * comm.seg_n]
+            y_r = mesh.psum(a.matvec(x_c), comm.col_axis)
+            return mesh.all_gather(y_r, comm.row_axis)
+
+        def rmv(y):
+            y_r = y[r * comm.seg_m:(r + 1) * comm.seg_m]
+            x_c = mesh.psum(at.matvec(y_r), comm.row_axis)
+            return mesh.all_gather(x_c, comm.col_axis)
+
+        return _Matvecs(mv, rmv)
+    return _Matvecs(lambda x: psum(a.matvec(x)),
+                    lambda y: psum(at.matvec(y)))
 
 
-def _make_power_iter(params: PdhgParams):
+def _make_power_iter(params: PdhgParams, psum=None):
     """sigma_max(A) by power iteration on A^T A (reference
     sharded_optimization_utils.h:179)."""
     steps = params.power_iteration_steps
 
     def power_iter(prob: DeviceProblem, v0: torch.Tensor) -> torch.Tensor:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         v = v0 / vnorm(v0)
         for _ in range(steps):
             w = mv.rmatvec(mv.matvec(v))
@@ -344,7 +439,7 @@ def _commit(s: _Slots, active, ends, attempts, trial, **fields) -> None:
     _select_(s.accepted, ends, s.accepted + 1)
 
 
-def _make_iteration(params: PdhgParams, fast: bool = False):
+def _make_iteration(params: PdhgParams, psum=None, fast: bool = False):
     """One attempt slot of the adaptive PDHG step (reference
     TakeAdaptiveStep), in place on a major's buffers: ``slot(prob, s)``.
 
@@ -358,14 +453,14 @@ def _make_iteration(params: PdhgParams, fast: bool = False):
     the slot changes nothing.  Nothing in it reads a device value, so a
     sequence of slots can be captured in a CUDA graph."""
     if params.linesearch_rule == "malitsky_pock":
-        return _make_mp_iteration(params, fast)
+        return _make_mp_iteration(params, psum, fast)
     reduction_exp = params.step_size_reduction_exponent
     growth_exp = params.step_size_growth_exponent
     max_attempts = params.max_step_attempts
     freq = params.termination_check_frequency
 
     def slot(prob: DeviceProblem, s: _Slots) -> None:
-        mv = _make_matvecs(prob.a, prob.at, fast)
+        mv = _make_matvecs(prob.a, prob.at, psum, fast)
         st = s.state
         dtype = prob.c.dtype
         tiny = torch.finfo(dtype).tiny
@@ -417,7 +512,7 @@ def _make_iteration(params: PdhgParams, fast: bool = False):
     return slot
 
 
-def _make_mp_iteration(params: PdhgParams, fast: bool = False):
+def _make_mp_iteration(params: PdhgParams, psum=None, fast: bool = False):
     """One attempt slot of the Malitsky-Pock linesearch (reference
     primal_dual_hybrid_gradient.cc:2211 TakeMalitskyPockStep;
     arXiv:1608.08883), in the slot form of ``_make_iteration``.
@@ -436,7 +531,7 @@ def _make_mp_iteration(params: PdhgParams, fast: bool = False):
     freq = params.termination_check_frequency
 
     def slot(prob: DeviceProblem, s: _Slots) -> None:
-        mv = _make_matvecs(prob.a, prob.at, fast)
+        mv = _make_matvecs(prob.a, prob.at, psum, fast)
         st = s.state
         dtype = prob.c.dtype
         tiny = torch.finfo(dtype).tiny
@@ -479,14 +574,14 @@ def _make_mp_iteration(params: PdhgParams, fast: bool = False):
     return slot
 
 
-def _make_run_major(params: PdhgParams, fast: bool = False):
+def _make_run_major(params: PdhgParams, psum=None, fast: bool = False):
     """One major as a function of a state: ``run_major(prob, state)``
     returns the state after ``termination_check_frequency`` iterations
     (a fresh ``_Majors`` each call: CUDA graphs on a card, eager slots on
     the CPU)."""
 
     def run_major(prob: DeviceProblem, state: PdhgState) -> PdhgState:
-        majors = _Majors(prob, params)
+        majors = _Majors(prob, params, psum)
         majors.load(state)
         majors.major(fast)
         return majors.snapshot()
@@ -642,7 +737,8 @@ def _projection_vectors(seed: int, n: int, m: int, dtype: torch.dtype,
     return draw(seed, n), draw(seed + 1, m)
 
 
-def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
+def _make_compute_stats(params: PdhgParams, psum=None,
+                        exact_refresh: bool = False):
     """``exact_refresh`` recomputes A x / Aᵀ y for the CURRENT iterate with
     the exact kernel — required while the major loop runs the bf16 fast
     stream, where state.ax/state.aty carry ~2^-9 matrix rounding.  Every
@@ -655,7 +751,7 @@ def _make_compute_stats(params: PdhgParams, exact_refresh: bool = False):
     projection_vectors: dict = {}
 
     def compute_stats(prob: DeviceProblem, state: PdhgState) -> dict:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         if exact_refresh:
             ax_c = mv.matvec(state.x)
             aty_c = mv.rmatvec(state.y)
@@ -783,14 +879,14 @@ def _stats_to_host(stats: dict) -> dict:
     return _read_scalars(*_stats_scalars(stats))
 
 
-def _make_apply_restart(params: PdhgParams):
+def _make_apply_restart(params: PdhgParams, psum=None):
     smoothing = params.primal_weight_update_smoothing
 
     def apply_restart(prob: DeviceProblem, state: PdhgState, use_avg,
                       x_avg: torch.Tensor, y_avg: torch.Tensor) -> PdhgState:
         """``use_avg``: a bool, or for a batch a [B, 1] bool tensor (each
         instance restarts to its average or its current iterate)."""
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         if isinstance(use_avg, torch.Tensor):
             x_new = torch.where(use_avg, x_avg, state.x)
             y_new = torch.where(use_avg, y_avg, state.y)
@@ -887,14 +983,16 @@ class _Majors:
     copy, and a major is done when its slowest instance is.
     """
 
-    def __init__(self, prob: DeviceProblem, params: PdhgParams):
+    def __init__(self, prob: DeviceProblem, params: PdhgParams, psum=None):
         self.params = params
+        self.psum = psum
         self.freq = params.termination_check_frequency
         self.tail_slots = -(-self.freq // 8)
         self.max_attempts = params.max_step_attempts
         if params.linesearch_rule == "malitsky_pock":
             self.max_attempts = max(params.max_step_attempts, 60)
-        self.use_graphs = prob.c.device.type == "cuda"
+        self.use_graphs = (prob.c.device.type == "cuda"
+                           and _capturable(psum))
         self.prob = prob._replace(**{f: getattr(prob, f).clone()
                                      for f in _PROBLEM_VECTORS})
         self.slots: Optional[_Slots] = None
@@ -941,8 +1039,9 @@ class _Majors:
     def _functions(self, fast: bool):
         if fast not in self._fns:
             self._fns[fast] = (
-                _make_iteration(self.params, fast),
-                _make_compute_stats(self.params, exact_refresh=fast))
+                _make_iteration(self.params, self.psum, fast),
+                _make_compute_stats(self.params, self.psum,
+                                    exact_refresh=fast))
         return self._fns[fast]
 
     def _main(self, fast: bool) -> None:
@@ -1035,14 +1134,14 @@ class _Majors:
 # ---------------------------------------------------------------------------
 
 
-def _make_initial_state(params: PdhgParams):
+def _make_initial_state(params: PdhgParams, psum=None):
     """``initial_state(prob, sigma_max)``.  A problem with [B, N] variable
     bounds gives a batch of B states; ``sigma_max`` is shared, as under
     the JAX module's ``vmap(in_axes=(axes, None))``."""
 
     def initial_state(prob: DeviceProblem,
                       sigma_max: torch.Tensor) -> PdhgState:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         dtype, device = prob.c.dtype, prob.c.device
         batch = tuple(prob.var_lb.shape[:-1])
         n = prob.c.shape[0]
@@ -1096,14 +1195,14 @@ def _make_initial_state(params: PdhgParams):
     return initial_state
 
 
-def _make_warm_state(params: PdhgParams):
+def _make_warm_state(params: PdhgParams, psum=None):
     """State from a given (x0, y0) start with inherited step and weight:
     the feasibility-polishing entry point (reference Solver ctor with
     starting solutions, primal_dual_hybrid_gradient.cc:2594-2599)."""
 
     def warm_state(prob: DeviceProblem, x0, y0, step,
                    weight) -> PdhgState:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         dtype, device = prob.c.dtype, prob.c.device
 
         def scalar(v, dt=dtype):
@@ -1132,9 +1231,9 @@ def _make_warm_state(params: PdhgParams):
     return warm_state
 
 
-def _make_final_iterate(norm: OptimalityNorm):
+def _make_final_iterate(norm: OptimalityNorm, psum=None):
     def final_iterate(prob: DeviceProblem, x, y) -> dict:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         s = _iterate_stats(prob, x, y, mv.matvec(x), mv.rmatvec(y), norm)
         return dict(
             x=prob.col_scale * x,
@@ -1184,11 +1283,149 @@ def _invalid_result(qp: QuadraticProgram,
     )
 
 
-def _check_deferred(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device solves (a mesh) come with the multi-device slice "
-            "of the port")
+def _block_slice(a: BlockSparseMatrix, lo: int, hi: int, device
+                 ) -> BlockSparseMatrix:
+    """Blocks ``lo:hi`` of ``a``'s block list, copied to ``device``, at
+    ``a``'s shape."""
+    def part(t):
+        return t[lo:hi].to(device, copy=True)
+
+    return BlockSparseMatrix(
+        data=part(a.data), block_rows=part(a.block_rows),
+        block_cols=part(a.block_cols), shape=a.shape,
+        padded_shape=a.padded_shape,
+        num_real_blocks=max(0, min(hi, a.num_real_blocks) - lo))
+
+
+def _vectors_to(prob: DeviceProblem, device) -> DeviceProblem:
+    """``prob`` with its vectors and scalars on ``device`` (A and Aᵀ as
+    they are)."""
+    return prob._replace(**{f: getattr(prob, f).to(device)
+                            for f in prob._fields if f not in ("a", "at")})
+
+
+def _place_problem(prob: DeviceProblem, mesh: Mesh, axis: str,
+                   params: PdhgParams, device) -> DeviceProblem:
+    """This rank's part of a 1-D block-sharded problem, from the whole
+    problem on the host: the contiguous slice ``[k nb/S, (k+1) nb/S)`` of
+    A's block list at coordinate k of ``axis`` (S ranks), and the
+    transposes of the same blocks for Aᵀ, which is what ``P(axis)`` on the
+    block arrays' leading dim gives each device in the JAX module.  Only
+    the slice and the (replicated) vectors go to ``device``.  Each shard
+    gets its kernel layout, without the bf16 copy: the products are exact
+    under a mesh."""
+    size, k = mesh.axis_size(axis), mesh.axis_index(axis)
+    a = prob.a.without_tiled()
+    nb = a.num_blocks
+    if nb % size:
+        raise ValueError(f"{nb} blocks do not split over {size} shards")
+    a_k = _block_slice(a, k * nb // size, (k + 1) * nb // size, device)
+    return _vectors_to(prob, device)._replace(
+        a=_attach_layout(a_k, params, fast=False),
+        at=_attach_layout(a_k.block_transpose(), params, fast=False))
+
+
+def _partition_blocks(data: np.ndarray, block_rows: np.ndarray,
+                      block_cols: np.ndarray, padded_shape: Tuple[int, int],
+                      nr: int, nc: int) -> dict:
+    """The row x col partition of a block list, every cell at once: rows
+    and cols split into ``nr`` and ``nc`` equal contiguous ranges; cell
+    k = r * nc + c holds the blocks of row-range r and col-range c, in
+    their list order, with indices local to the cell, zero-padded (zero
+    blocks at (0, 0)) to the largest cell's count ``nbmax``.  Returns the
+    stacked arrays (cell k is ``[k nbmax, (k+1) nbmax)``) and the segment
+    lengths (the JAX module's solver.py:1576-1600)."""
+    bm, bn = int(data.shape[1]), int(data.shape[2])
+    mm, nn = padded_shape
+    if mm % (nr * bm) or nn % (nc * bn):
+        raise ValueError(f"padded shape {padded_shape} does not split into "
+                         f"{nr} x {nc} cells of whole blocks")
+    seg_m, seg_n = mm // nr, nn // nc
+    rows_per_seg, cols_per_seg = seg_m // bm, seg_n // bn
+    cell = (block_rows // rows_per_seg) * nc + block_cols // cols_per_seg
+    counts = np.bincount(cell, minlength=nr * nc)
+    nbmax = max(1, int(counts.max()))
+    stacked = np.zeros((nr * nc * nbmax, bm, bn), dtype=data.dtype)
+    srows = np.zeros(nr * nc * nbmax, dtype=np.int32)
+    scols = np.zeros(nr * nc * nbmax, dtype=np.int32)
+    order = np.argsort(cell, kind="stable")
+    pos = 0
+    for k in range(nr * nc):
+        sel = order[pos: pos + counts[k]]
+        pos += counts[k]
+        off = k * nbmax
+        stacked[off: off + len(sel)] = data[sel]
+        srows[off: off + len(sel)] = block_rows[sel] % rows_per_seg
+        scols[off: off + len(sel)] = block_cols[sel] % cols_per_seg
+    return dict(data=stacked, block_rows=srows, block_cols=scols,
+                seg_m=seg_m, seg_n=seg_n, nbmax=nbmax)
+
+
+def partition_2d(qp: QuadraticProgram, params: PdhgParams,
+                 shape: Tuple[int, int]):
+    """The host partition of a 2-D (row x col) mesh of ``shape``, every
+    cell, on the CPU: returns (base, cells), ``base`` the whole problem
+    with both padded lengths rounded so that each range holds whole blocks
+    (the JAX module's lcm rounding) and ``cells`` the stacked cell arrays
+    (``_partition_blocks``)."""
+    nr, nc = shape
+    qpm = qp.as_minimization()
+    bm, bn = params.block_shape or auto_block_shape(
+        qpm.num_constraints, qpm.num_variables, qpm.num_nonzeros)
+    base = build_device_problem(
+        qpm, dataclasses.replace(params, use_tiled_spmv=None), "cpu",
+        row_pad_multiple=nr * bm * (128 // math.gcd(128, bm)),
+        col_pad_multiple=nc * bn * (128 // math.gcd(128, bn)),
+    )
+    a = base.a
+    nreal = a.num_real_blocks
+    return base, _partition_blocks(
+        a.data[:nreal].numpy(), a.block_rows[:nreal].numpy(),
+        a.block_cols[:nreal].numpy(), a.padded_shape, nr, nc)
+
+
+def build_2d_problem(qp: QuadraticProgram, params: PdhgParams, mesh: Mesh,
+                     device="cuda") -> Tuple[DeviceProblem, Comm2D]:
+    """Partition A over a 2-D (row x col) mesh: this rank's cell of
+    ``partition_2d`` (made on the host) as its A (seg_m x seg_n) and the
+    cell's block transpose as its Aᵀ, each with its kernel layout, on
+    ``device`` with the whole vectors; nothing else of A leaves the
+    host."""
+    device = resolve_device(device)
+    row_axis, col_axis = mesh.axis_names
+    nc = mesh.shape[1]
+    base, cells = partition_2d(qp, params, mesh.shape)
+    seg_m, seg_n, nbmax = cells["seg_m"], cells["seg_n"], cells["nbmax"]
+    k = mesh.axis_index(row_axis) * nc + mesh.axis_index(col_axis)
+    part = slice(k * nbmax, (k + 1) * nbmax)
+    a_cell = BlockSparseMatrix(
+        data=torch.as_tensor(cells["data"][part], device=device),
+        block_rows=torch.as_tensor(cells["block_rows"][part], device=device),
+        block_cols=torch.as_tensor(cells["block_cols"][part], device=device),
+        shape=(seg_m, seg_n), padded_shape=(seg_m, seg_n),
+        num_real_blocks=nbmax)
+    prob = _vectors_to(base, device)._replace(
+        a=_attach_layout(a_cell, params, fast=False),
+        at=_attach_layout(a_cell.block_transpose(), params, fast=False))
+    return prob, Comm2D(row_axis, col_axis, seg_m, seg_n, mesh)
+
+
+def build_mesh_problem(qp: QuadraticProgram, params: PdhgParams, mesh: Mesh,
+                       device="cuda"):
+    """This rank's problem on ``mesh`` and the products' mode
+    (``_make_matvecs``' ``psum``): the 2-D partition on a 2-D mesh, else
+    the block list split over ``params.mesh_axis``.  The problem is scaled
+    and split on the host; only this rank's part of A goes to
+    ``device``."""
+    device = resolve_device(device)
+    if len(mesh.shape) == 2:
+        return build_2d_problem(qp, params, mesh, device)
+    axis = params.mesh_axis
+    mesh.axis_index(axis)  # raises on an axis the mesh lacks
+    prob = build_device_problem(qp, params, "cpu",
+                                pad_blocks_to_multiple_of=mesh.size)
+    return (_place_problem(prob, mesh, axis, params, device),
+            _Psum(mesh, axis))
 
 
 def solve(
@@ -1196,20 +1433,33 @@ def solve(
     params: Optional[PdhgParams] = None,
     device="cuda",
     v0=None,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
 ) -> SolveResult:
-    """Solve an LP/QP with restarted adaptive PDHG on one device.
+    """Solve an LP/QP with restarted adaptive PDHG.
 
     ``device`` defaults to the card and raises where there is none;
     ``device="cpu"`` runs the same solve with the kernels' plain versions.
     ``v0`` is the power-iteration start, of the length of the padded
     variable vector of the problem the PDHG runs on (the reduced one under
-    ``presolve``); by default it is drawn from a ``torch.Generator``
-    seeded with 0.
+    ``presolve``, the 2-D padding's under a 2-D mesh); by default it is
+    drawn from a ``torch.Generator`` seeded with 0.
+
+    With ``mesh`` (``parallel.make_mesh``) every rank of the mesh calls
+    ``solve`` with the same arguments; the constraint matrix is split over
+    the ranks (see the module's docstring) on the mesh's device, and every
+    rank returns the same result.
     """
     params = params or PdhgParams()
     device = resolve_device(device)
-    _check_deferred(mesh)
+    if mesh is not None:
+        if mesh.device.type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the solve asks "
+                             f"for {device}")
+        device = mesh.device
+    shards = 1 if mesh is None else mesh.size
+    if params.num_shards not in (1, shards):
+        raise ValueError(f"num_shards={params.num_shards}, but the mesh has "
+                         f"{shards} devices (the mesh alone sets the shards)")
     perrs = params.validate()
     if perrs:
         return _invalid_result(qp, TerminationReason.INVALID_PARAMETER)
@@ -1218,28 +1468,44 @@ def solve(
         return _invalid_result(qp, TerminationReason.INVALID_PROBLEM)
     start = time.perf_counter()
     if params.presolve:
-        return _solve_with_presolve(qp, params, device, v0, start)
+        return _solve_with_presolve(qp, params, device, v0, start, mesh)
     qp_min = qp.as_minimization()
     sign = -1.0 if qp.maximize else 1.0
 
-    prob = build_device_problem(qp_min, params, device)
-    compute_stats = _make_compute_stats(params)
-    apply_restart = _make_apply_restart(params)
-    power_iter = _make_power_iter(params)
-    initial_state = _make_initial_state(params)
-    warm_state = _make_warm_state(params)
-    final_iterate = _make_final_iterate(params.optimality_norm)
+    if mesh is None:
+        psum = None
+        prob = build_device_problem(qp_min, params, device)
+    else:
+        prob, psum = build_mesh_problem(qp_min, params, mesh, device)
+    compute_stats = _make_compute_stats(params, psum)
+    apply_restart = _make_apply_restart(params, psum)
+    power_iter = _make_power_iter(params, psum)
+    initial_state = _make_initial_state(params, psum)
+    warm_state = _make_warm_state(params, psum)
+    final_iterate = _make_final_iterate(params.optimality_norm, psum)
     freq = params.termination_check_frequency
 
     def refresh_products(st: PdhgState) -> PdhgState:
-        mv = _make_matvecs(prob.a, prob.at)
+        mv = _make_matvecs(prob.a, prob.at, psum)
         return st._replace(ax=mv.matvec(st.x), aty=mv.rmatvec(st.y))
 
-    # Mixed-precision majors (bf16 stream) where the bf16 copy is attached.
-    # Stats for fast majors recompute the current iterate's products with
-    # the exact kernel, so termination always rests on exact residuals.
+    def time_up() -> bool:
+        global host_syncs
+        over = time.perf_counter() - start > params.time_sec_limit
+        if mesh is not None and math.isfinite(params.time_sec_limit):
+            # the ranks' clocks differ: agree, through the card under NCCL
+            # (one more host read a major)
+            over = mesh.any(over)
+            host_syncs += mesh.backend == "nccl"
+        return over
+
+    # Mixed-precision majors (bf16 stream) where the bf16 copy is attached
+    # (one device only).  Stats for fast majors recompute the current
+    # iterate's products with the exact kernel, so termination always
+    # rests on exact residuals.
     fast_ready = (
-        params.stream_precision in ("auto", "mixed")
+        psum is None
+        and params.stream_precision in ("auto", "mixed")
         and prob.a.has_fast_stream and prob.at.has_fast_stream
     )
 
@@ -1253,7 +1519,7 @@ def solve(
     if v0.shape != (nn,):
         raise ValueError(f"v0 must have length {nn}, got {tuple(v0.shape)}")
     sigma_max = power_iter(prob, v0)
-    majors = _Majors(prob, params)
+    majors = _Majors(prob, params, psum)
     majors.load(initial_state(prob, sigma_max))
     prob_consts = dict(
         norm_b=float(prob.norm_b), norm_c=float(prob.norm_c)
@@ -1359,7 +1625,7 @@ def solve(
         if iterations >= params.iteration_limit:
             reason = TerminationReason.ITERATION_LIMIT
             break
-        if time.perf_counter() - start > params.time_sec_limit:
+        if time_up():
             reason = TerminationReason.TIME_LIMIT
             break
         was_fast = fast_mode
@@ -1580,7 +1846,7 @@ def solve(
 
 
 def _solve_with_presolve(qp: QuadraticProgram, params: PdhgParams, device,
-                         v0, start: float) -> SolveResult:
+                         v0, start: float, mesh=None) -> SolveResult:
     """Presolve -> solve reduced -> postsolve (reference
     PreprocessSolver::PreprocessAndSolve with glop presolve, :1145)."""
     from ortools_tpu_torch.glop.presolve import PresolveStatus, presolve
@@ -1609,7 +1875,7 @@ def _solve_with_presolve(qp: QuadraticProgram, params: PdhgParams, device,
             solve_time_sec=time.perf_counter() - start,
             iteration_stats=[],
         )
-    sub = solve(reduced, sub_params, device=device, v0=v0)
+    sub = solve(reduced, sub_params, device=device, v0=v0, mesh=mesh)
     if sub.termination_reason not in (
         TerminationReason.OPTIMAL,
         TerminationReason.ITERATION_LIMIT,

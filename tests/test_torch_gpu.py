@@ -9,6 +9,8 @@ dependencies:
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -607,3 +609,78 @@ def test_front_end_pdlp_on_card_equals_pdlp_solve(cuda):
     np.testing.assert_array_equal(s._duals, ref.dual_solution)
     np.testing.assert_array_equal(s._reduced_costs, ref.reduced_costs)
     assert s.objective_value == ref.primal_objective
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_solve_equals_the_single_path(cuda, tmp_path):
+    """A mesh of one NCCL rank, 1-D and 2-D (1, 1): the padding, the block
+    order and the collectives are the identity, so the solve equals the
+    single path's exact stream bit for bit (the fast stream is exact under
+    a mesh).  The collectives are captured in the majors' graphs: the
+    host calls them while the graphs are captured, and replayed majors
+    call none."""
+    import torch.distributed as dist
+
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.parallel import make_mesh
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.pdlp import solver as S
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        qp = block_random_lp(2048, 2048, 512, (8, 128), seed=1)
+        params = PdhgParams(iteration_limit=512)
+        single = solve(qp, PdhgParams(iteration_limit=512,
+                                      stream_precision="exact"))
+        for shape, names in (((1,), ("shards",)), ((1, 1), ("row", "col"))):
+            mesh = make_mesh(shape, names)
+            r = solve(qp, params, mesh=mesh)
+            assert r.termination_reason == single.termination_reason
+            assert r.iterations == single.iterations
+            assert r.primal_objective == single.primal_objective
+            assert r.dual_objective == single.dual_objective
+            np.testing.assert_array_equal(r.primal_solution,
+                                          single.primal_solution)
+            np.testing.assert_array_equal(r.dual_solution,
+                                          single.dual_solution)
+            prob, psum = S.build_mesh_problem(qp, params, mesh)
+            g = torch.Generator(device="cpu").manual_seed(0)
+            v0 = torch.randn(prob.c.shape[0], generator=g,
+                             dtype=torch.float64).to(prob.c)
+            sigma = S._make_power_iter(params, psum)(prob, v0)
+            majors = S._Majors(prob, params, psum)
+            majors.load(S._make_initial_state(params, psum)(prob, sigma))
+            assert majors.use_graphs
+            mesh.calls = 0
+            majors.major()
+            captured = mesh.calls
+            assert captured > 0 and len(majors._graphs) == 3
+            majors.major()
+            majors.major()
+            torch.cuda.synchronize()
+            assert mesh.calls == captured
+            assert bool(torch.isfinite(majors.state.x).all())
+        # A finite time limit agrees on the clock through the card once a
+        # major: the same result, one more counted host read per agreement.
+        agreed = []
+        mesh_any = mesh.any
+
+        def counted_any(flag):
+            agreed.append(flag)
+            return mesh_any(flag)
+
+        mesh.any = counted_any
+        S.host_syncs = 0
+        r = solve(qp, params, mesh=mesh)
+        unlimited = S.host_syncs
+        S.host_syncs = 0
+        timed = solve(qp, dataclasses.replace(params, time_sec_limit=3600.0),
+                      mesh=mesh)
+        assert len(agreed) > 0 and not any(agreed)
+        assert S.host_syncs == unlimited + len(agreed)
+        assert timed.iterations == r.iterations
+        np.testing.assert_array_equal(timed.primal_solution,
+                                      r.primal_solution)
+    finally:
+        dist.destroy_process_group()

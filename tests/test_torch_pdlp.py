@@ -887,11 +887,19 @@ def test_random_projections_keys_formula_and_repeat():
 
 
 # ---------------------------------------------------------------------------
-# Only the mesh is left to a later slice
+# Meshes (the mesh solves themselves: tests/test_torch_mesh.py)
 # ---------------------------------------------------------------------------
 
 
 def test_mesh_raises():
-    qp = trandom_lp(10, 10, density=0.3, seed=0)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tsolve(qp, TParams(dtype=torch.float64), device="cpu", mesh=object())
+    """A mesh whose shape is not the world size raises ValueError, as the
+    JAX package's make_mesh does for a shape that needs more devices than
+    there are; here in a world of one gloo rank."""
+    from ortools_tpu_torch import graft_entry
+    from tests.torch_mesh_ranks import MeshSpec, mesh_layout, run_tasks
+
+    (err,) = graft_entry.start_ranks(1, run_tasks, ("cpu", [
+        (mesh_layout, dict(mesh=MeshSpec((2,))))]), device="cpu",
+        timeout=120).join()[0]
+    assert isinstance(err, ValueError)
+    assert "needs 2 devices, have 1" in str(err)

@@ -12,10 +12,12 @@ from ortools_tpu_torch import cli, math_opt, mip
 from ortools_tpu_torch.algorithms import KnapsackSolver, SetCoverModel
 from ortools_tpu_torch.algorithms.knapsack import dp_knapsack_torch
 from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
+from ortools_tpu_torch.graft_entry import dryrun_multichip, start_ranks
 from ortools_tpu_torch.linear_solver import Model, Solver
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.lp import random_lp
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
+from ortools_tpu_torch.parallel import make_mesh
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.sat.fj_device import device_feasibility_jump
@@ -27,7 +29,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ortools_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_spmm_probe.py",
-    ROOT / "scripts" / "torch_mip_probe.py"]
+    ROOT / "scripts" / "torch_mip_probe.py",
+    ROOT / "scripts" / "torch_mesh_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -69,6 +72,13 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
     a = np.ones((2, 3))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_feasibility_jump(a, np.ones(2), np.full(2, np.inf))
+    # the mesh and the multi-device dry run
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        start_ranks(1, print)
     # the front end
     model = Model.from_qp(random_lp(10, 10, density=0.3, seed=0))
     for backend in ("pdlp", "mip"):

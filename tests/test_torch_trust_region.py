@@ -189,12 +189,12 @@ def test_adaptive_heuristic_restarts_differ_from_adaptive_kkt():
 
 def test_params_defaults_match_jax():
     """The port's PdhgParams has the JAX package's fields and defaults,
-    the Malitsky-Pock constants included, except the mesh fields (a later
-    slice) and ``adaptive_step_size``, which no solver code reads."""
+    the Malitsky-Pock constants and the mesh fields included, except
+    ``adaptive_step_size``, which no solver code reads."""
     import dataclasses
 
     jp, tp = JParams(), PdhgParams()
-    left_out = {"num_shards", "mesh_axis", "adaptive_step_size", "dtype"}
+    left_out = {"adaptive_step_size", "dtype"}
     jfields = {f.name for f in dataclasses.fields(jp)} - left_out
     assert {f.name for f in dataclasses.fields(tp)} - {"dtype"} == jfields
     for name in jfields:

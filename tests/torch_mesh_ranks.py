@@ -1,0 +1,65 @@
+"""What the mesh tests run inside their gloo ranks.
+
+The ranks are spawned processes (``graft_entry.start_ranks``) that import
+their target by name, so it lives in this module, which imports no JAX:
+each rank runs ``run_tasks`` on a list of ``(fn, kwargs)``.
+"""
+
+from typing import Any, List, NamedTuple, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ortools_tpu_torch.parallel import make_mesh
+from ortools_tpu_torch.pdlp import solver as S
+
+
+class MeshSpec(NamedTuple):
+    """A mesh to make in each rank: ``make_mesh(shape, axis_names)``."""
+
+    shape: tuple
+    axis_names: tuple = ("shards",)
+
+    def make(self, device: str):
+        """The mesh on ``device``, over the default group's backend."""
+        return make_mesh(self.shape, self.axis_names, device=device,
+                         backend=dist.get_backend())
+
+
+def run_tasks(device: str, tasks: Sequence[tuple]) -> List[Any]:
+    """A rank's list of tasks, each ``(fn, kwargs)`` with ``fn`` an
+    importable function; a kwarg that is a ``MeshSpec`` becomes that mesh
+    on ``device``.  Returns each task's result, or, where it raised a
+    ValueError or RuntimeError, the exception (every rank raises alike: a
+    task that fails on one rank alone leaves the others in a collective,
+    and the launcher's timeout ends them)."""
+    out = []
+    for fn, kwargs in tasks:
+        try:
+            kw = {k: v.make(device) if isinstance(v, MeshSpec) else v
+                  for k, v in kwargs.items()}
+            out.append(fn(**kw))
+        except (ValueError, RuntimeError) as e:
+            out.append(e)
+    return out
+
+
+def mesh_layout(mesh) -> dict:
+    """What a rank's mesh is: its shape, axis names, device, backend, this
+    rank's coordinates, and the ranks of each axis's group."""
+    return dict(
+        shape=mesh.shape, axis_names=mesh.axis_names,
+        device=str(mesh.device), backend=mesh.backend, coords=mesh.coords,
+        groups={a: dist.get_process_group_ranks(mesh.get_group(a))
+                for a in mesh.axis_names})
+
+
+def mesh_products(qp, params, mesh, x, y, device="cpu"):
+    """(A x, Aᵀ y) through this rank's part of ``qp``'s scaled matrix on
+    ``mesh`` (numpy in, numpy out; x and y padded as the mesh pads)."""
+    prob, psum = S.build_mesh_problem(qp.as_minimization(), params, mesh,
+                                      device)
+    mv = S._make_matvecs(prob.a, prob.at, psum)
+    as_t = dict(dtype=prob.c.dtype, device=prob.c.device)
+    return (mv.matvec(torch.as_tensor(x, **as_t)).cpu().numpy(),
+            mv.rmatvec(torch.as_tensor(y, **as_t)).cpu().numpy())
