@@ -12,7 +12,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    what ``-Xptxas -v`` says of each (registers, shared memory, spills);
    an SpMM instantiation that spills fails the run.  Beside them, g++
    builds the native small-LP core (``ortools_tpu_torch/_native/smalllp.cc``)
-   that the MIP path's simplex node backend loads.
+   that the MIP path's simplex node backend loads, and the CDCL core
+   (``cdcl.cc``) that MaxHS loads.
 3. Each kernel against its plain PyTorch version on the card: A (8x128)
    and its transpose (128x8) at the bench shape, every other block shape
    the kernels take and its transpose at a smaller size, a skewed matrix
@@ -114,10 +115,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    printed beside the single exact path's; the 2-D mesh again in f64, bit
    for bit its one-process solve and within one major of the single exact
    path's iteration count.
+12. The host front ends that reach the card through ``mip.solve`` (run
+   before phase 8's lines): ``solve_bin_packing`` on Falkenauer's u120
+   (120 sizes uniform in [20, 100] from seed 0, capacity 150; LB 49, FFD
+   50) under a 60 s limit, its assignment MIP sent to ``PdhgNodeBackend``
+   by the auto rule, the SpMV and the SpMM launched and held to their
+   plain versions on the first BatchSolver's scaled A and Aᵀ, the device
+   FJ's calls (none without a root incumbent: the B&B's gate), the
+   packing checked (or ``None`` printed), HiGHS beside it;
+   ``solve_boolean_lp`` on edge_packing_300_s15 under a 60 s limit, its
+   incumbent checked in numpy and its bound valid against HiGHS's 20 s
+   incumbent; ``IntegralSolver`` on gap_20x5_s10 and
+   ``solve_vector_bin_packing`` on tests/test_scheduling_packing.py's
+   three cases and u60 (LB 24, FFD 25, 1,194 arcs), OPTIMAL at milp's
+   objective; ``minimize_max_hs`` on tests/test_max_hs.py's weighted
+   max-SAT models (n 10, m 18, seeds 0 and 1) built on the port's IR,
+   OPTIMAL at milp's objective, with the device FJ's share of each call;
+   the launches of each solve, the counters set to 0 just before it and
+   read just after.  Matching is not on the card: its blossom runs on the
+   host and its MIP fallback cannot be reached on complete even graphs.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
-   path, on the front end and on the mesh path, and the fast SpMV's bf16
-   CSR yardstick), the total time, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+   path, on the front end, on the mesh path and on the host front ends,
+   and the fast SpMV's bf16 CSR yardstick), the total time, the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -149,8 +169,11 @@ from ortools_tpu_torch.algorithms import KnapsackSolver, SetCoverModel
 from ortools_tpu_torch.algorithms.knapsack import (dp_knapsack_table,
                                                    dp_knapsack_torch)
 from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
+from ortools_tpu_torch.bop import IntegralSolver
+from ortools_tpu_torch.bop.portfolio import solve_boolean_lp
 from ortools_tpu_torch.linear_solver import LinearExpr, Model, Solver
 from ortools_tpu_torch.mip import MipParams
+from ortools_tpu_torch.mip import branch_and_bound as bnb
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.generators import block_random_lp
 from ortools_tpu_torch.models.mip_generators import miplib_like_battery
@@ -158,12 +181,19 @@ from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.models.mps import write_mps
 from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
+from ortools_tpu_torch.packing import (BinPackingInstance,
+                                       first_fit_decreasing,
+                                       solve_bin_packing)
+from ortools_tpu_torch.packing.arc_flow import (build_arc_flow_graph,
+                                                solve_vector_bin_packing)
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp import batched
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
 from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.pdlp.params import RestartStrategy
 from ortools_tpu_torch.sat import fj_device
+from ortools_tpu_torch.sat import model_ir as ir
+from ortools_tpu_torch.sat.max_hs import minimize_max_hs
 from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
@@ -266,16 +296,21 @@ def environment() -> str:
     return smi.splitlines()[0]
 
 
+# The native cores: the simplex node backend's and MaxHS's CDCL solver
+NATIVE = ("smalllp", "cdcl")
+
+
 def build_native() -> threading.Thread:
-    """Build ``ortools_tpu_torch/_native/smalllp.cc`` with g++ from the
-    source, on a thread beside the kernels' nvcc: any library left from an
-    earlier build is removed first.  The thread's ``error`` is the build's
-    exception, or None."""
+    """Build ``ortools_tpu_torch/_native/{smalllp,cdcl}.cc`` with g++ from
+    the sources, on a thread beside the kernels' nvcc: any library left
+    from an earlier build is removed first.  The thread's ``error`` is the
+    build's exception, or None."""
     shutil.rmtree(native_build.OUT_DIR, ignore_errors=True)
 
     def run():
         try:
-            native_build.load_library("smalllp")
+            for name in NATIVE:
+                native_build.load_library(name)
         except Exception as e:  # reported by the caller through require
             th.error = e
 
@@ -1454,16 +1489,24 @@ def device_fj_rounds(qp) -> None:
 class _CallLog:
     """For the length of a solve, wraps PdhgNodeBackend.solve and
     device_feasibility_jump to record each call's start and end (host
-    clock) with the node LPs it held or the rounds it ran, and the scaled
-    problem of the first ``BatchSolver`` the solve used; zeroes the launch,
-    solver and capture counters on entry."""
+    clock) with the node LPs it held or the rounds it ran, the scaled
+    problem of the first ``BatchSolver`` the solve used, and the class of
+    each node backend that the B&B's ``choose_backend`` built; zeroes the
+    launch, solver and capture counters on entry."""
 
     def __enter__(self):
         self.batches, self.fj = [], []  # (start, end, node LPs / rounds)
+        self.backends = []
         self.prob = None
         self._solve = PdhgNodeBackend.solve
         self._fj = fj_device.device_feasibility_jump
+        self._choose = bnb.choose_backend
         log = self
+
+        def choose_(*a, **k):
+            backend = log._choose(*a, **k)
+            log.backends.append(type(backend).__name__)
+            return backend
 
         def solve_(backend, lbs, *a, **k):
             t0 = time.perf_counter()
@@ -1481,6 +1524,7 @@ class _CallLog:
 
         PdhgNodeBackend.solve = solve_
         fj_device.device_feasibility_jump = fj_
+        bnb.choose_backend = choose_
         reset_counters()
         batched.solvers_built = 0
         pdlp_solver.capture_seconds = 0.0
@@ -1490,6 +1534,7 @@ class _CallLog:
     def __exit__(self, *exc):
         PdhgNodeBackend.solve = self._solve
         fj_device.device_feasibility_jump = self._fj
+        bnb.choose_backend = self._choose
 
     def counts(self) -> dict:
         launches = _launches()
@@ -1504,6 +1549,17 @@ class _CallLog:
             host_syncs=pdlp_solver.host_syncs, fj_calls=len(self.fj),
             fj_rounds=sum(r for _, _, r in self.fj),
             fj_seconds=sum(t1 - t0 for t0, t1, _ in self.fj))
+
+
+def _root_share(log: _CallLog, t0: float, dt: float) -> tuple:
+    """The root's seconds (until the first node-LP batch after the last
+    device-FJ call, as ``default_mip`` reads it) and the device FJ's share
+    of them."""
+    fj_end = log.fj[-1][1] if log.fj else None
+    tree = [b for b in log.batches if fj_end is not None and b[0] >= fj_end]
+    root_s = (tree[0][0] if tree else t0 + dt) - t0
+    fj_s = sum(t1 - s for s, t1, _ in log.fj)
+    return root_s, fj_s / max(root_s, 1e-9)
 
 
 def _add(total: dict, launches: dict) -> None:
@@ -1602,9 +1658,7 @@ def default_mip(errs: dict, name=DEFAULT_MIP,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     cnt = log.counts()
-    fj_end = log.fj[-1][1] if log.fj else None
-    tree = [b for b in log.batches if fj_end is not None and b[0] >= fj_end]
-    root_s = (tree[0][0] if tree else t0 + dt) - t0
+    root_s, fj_share = _root_share(log, t0, dt)
     obj = r.objective_value
     print(f"mip.solve {name} ({qp.num_constraints} x {qp.num_variables}) "
           f"under MipParams defaults, limit {limit} s: {r.status.name} "
@@ -1612,8 +1666,7 @@ def default_mip(errs: dict, name=DEFAULT_MIP,
           f"s ({dt - limit:+.3f} s past the limit); HiGHS with "
           f"{HIGHS_LIMIT} s: {ref!r} ({msg}); root {root_s:.3f} s, device "
           f"FJ {cnt['fj_calls']} calls, {cnt['fj_rounds']} rounds, "
-          f"{cnt['fj_seconds']:.3f} s ({cnt['fj_seconds'] / root_s:.1%} of "
-          f"the root); {cnt['batches']} node-LP batches (largest "
+          f"{cnt['fj_seconds']:.3f} s ({fj_share:.1%} of the root); {cnt['batches']} node-LP batches (largest "
           f"{cnt['largest_batch']}), {cnt['node_lps']} node LPs ({cnt['node_lps_per_s']:.1f}/s), "
           f"{cnt['solvers_built']} BatchSolvers built, capture "
           f"{cnt['capture_seconds']:.3f} s; launches {cnt['launches']}",
@@ -1671,16 +1724,21 @@ COVER_MIP = "set_cover_150x60_s1"
 
 class _Results:
     """For its length, wraps ``module.solve`` (a package attribute that the
-    front end imports at call time) to keep each call's result."""
+    front end imports at call time) to keep each call's QP and result,
+    and to hand the first QP to ``on_first`` before it is solved."""
 
-    def __init__(self, module):
-        self.module, self.results = module, []
+    def __init__(self, module, on_first=None):
+        self.module, self.on_first = module, on_first
+        self.qps, self.results = [], []
 
     def __enter__(self):
         self._solve = inner = self.module.solve
 
-        def solve_(*a, **k):
-            r = inner(*a, **k)
+        def solve_(qp, *a, **k):
+            if not self.qps and self.on_first is not None:
+                self.on_first(qp)
+            self.qps.append(qp)
+            r = inner(qp, *a, **k)
             self.results.append(r)
             return r
         self.module.solve = solve_
@@ -2377,6 +2435,282 @@ def gloo_ranks() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 12. The host front ends that reach the card through mip.solve: bin
+#     packing (assignment MIP, arc flow), BOP, MaxHS.  Matching is not on
+#     the card: its blossom runs on the host, and its MIP fallback cannot
+#     be reached on complete even graphs (CPU tests only).
+# ---------------------------------------------------------------------------
+
+# Falkenauer's "u" class: integer sizes uniform in [20, 100] from
+# numpy.random.default_rng(seed), capacity 150
+U_CAPACITY, U_LOW, U_HIGH, U_SEED = 150, 20, 100, 0
+U120 = dict(items=120, lower_bound=49, ffd=50, limit=60.0)
+# the arc-flow case of the same class (LB 24, FFD 25, 1,194 arcs); u120 is
+# left out: solve_vector_bin_packing has no time limit (PERF.md §7)
+U_ARC_FLOW = dict(items=60, nodes=120, arcs=1194, bins=24)
+# tests/test_scheduling_packing.py's three arc-flow cases and their bins
+ARC_FLOW_CASES = ((([10], [[6], [5], [4], [3], [2]], [1, 1, 1, 1, 1]), 2),
+                  (([6], [[3]], [4]), 2),
+                  (([5, 6], [[3, 1], [3, 5], [2, 4]], [1, 1, 1]), 2))
+BOP_MIP, BOP_LIMIT = "edge_packing_300_s15", 60.0
+INTEGRAL_MIP = "gap_20x5_s10"
+# tests/test_max_hs.py::weighted_maxsat_model's size and two of its seeds
+MAXSAT = dict(n=10, m=18, seeds=(0, 1))
+
+
+def u_class(n: int, seed: int = U_SEED) -> list:
+    return np.random.default_rng(seed).integers(
+        U_LOW, U_HIGH + 1, size=n).tolist()
+
+
+def check_packing(sizes: list, capacity: int, bins: list,
+                  most: int) -> bool:
+    """Every item in exactly one bin, no bin over its capacity, at most
+    ``most`` bins."""
+    items = sorted(i for b in bins for i in b)
+    return (items == list(range(len(sizes))) and len(bins) <= most
+            and all(sum(sizes[i] for i in b) <= capacity for b in bins))
+
+
+def assignment_packing(errs: dict) -> dict:
+    """(a) ``solve_bin_packing`` on u120 under a 60 s limit: the auto rule's
+    backend, the SpMV and the SpMM launched and held to their plain
+    versions on the first BatchSolver's scaled A and Aᵀ, the device FJ's
+    calls and share of the root, the packing checked; HiGHS on the same
+    assignment MIP (20 s, in a thread) beside it.  Returns the
+    launches."""
+    sizes = u_class(U120["items"])
+    inst = BinPackingInstance(U_CAPACITY, sizes)
+    lb, ffd = inst.lower_bound(), len(first_fit_decreasing(inst))
+    require((lb, ffd) == (U120["lower_bound"], U120["ffd"]),
+            f"u{U120['items']}: LB {lb}, FFD {ffd}")
+    highs = []
+    with ThreadPoolExecutor(1) as pool, _Results(
+            mip, on_first=lambda qp: highs.append(
+                pool.submit(highs_mip, qp, HIGHS_LIMIT))) as calls, \
+            _CallLog() as log:
+        t0 = time.perf_counter()
+        packing = solve_bin_packing(inst, time_limit_sec=U120["limit"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref, msg = highs[0].result()
+    cnt = log.counts()
+    qp, r = calls.qps[0], calls.results[-1]
+    m, n = qp.num_constraints, qp.num_variables
+    root_s, fj_share = _root_share(log, t0, dt)
+    print(f"solve_bin_packing u{U120['items']} (capacity {U_CAPACITY}, "
+          f"LB {lb}, FFD {ffd}; assignment MIP {m} x {n}, m(m+n) "
+          f"{m * (m + n)}), limit {U120['limit']} s: "
+          f"{None if packing is None else len(packing)} bins "
+          f"({r.status.name}, bound {r.best_bound!r}, {r.num_nodes} nodes), "
+          f"{dt:.3f} s; HiGHS with {HIGHS_LIMIT} s: {ref!r} ({msg}); "
+          f"backends built {log.backends}; {cnt['batches']} node-LP batches "
+          f"(largest {cnt['largest_batch']}), {cnt['node_lps']} node LPs "
+          f"({cnt['node_lps_per_s']:.1f}/s), {cnt['solvers_built']} "
+          f"BatchSolvers built, capture {cnt['capture_seconds']:.3f} s; "
+          f"root {root_s:.3f} s, device FJ {cnt['fj_calls']} calls, "
+          f"{cnt['fj_rounds']} rounds, {cnt['fj_seconds']:.3f} s "
+          f"({fj_share:.1%} of the root); launches {cnt['launches']}",
+          flush=True)
+    require(log.backends[:1] == ["PdhgNodeBackend"],
+            f"u{U120['items']}: the auto rule chose {log.backends[:1]}")
+    require(cnt["launches"]["block_spmv_exact"] > 0
+            and cnt["launches"][SPMM["name"]] > 0,
+            f"u{U120['items']}: a kernel was not launched: "
+            f"{cnt['launches']}")
+    if not cnt["fj_calls"]:
+        # the root's device-FJ gate (branch_and_bound.py) needs an
+        # incumbent to descend from; the assignment MIP does not start
+        # from the FFD packing, and the JAX package finds none either
+        print(f"u{U120['items']}: the device FJ did not run: the root had "
+              f"no incumbent to descend from", flush=True)
+    require(packing is None or check_packing(sizes, U_CAPACITY, packing,
+                                             ffd),
+            f"u{U120['items']}: the packing fails the check")
+    node_lp_kernels(f"u{U120['items']}", log.prob, errs)
+    return cnt["launches"]
+
+
+def boolean_portfolio(errs: dict) -> dict:
+    """(b) ``solve_boolean_lp`` on BOP_MIP under a 60 s limit: the
+    incumbent checked in numpy, the bound valid against HiGHS's 20 s
+    incumbent, the strategies' wins and the launches.  Returns them."""
+    qp = battery()[BOP_MIP]
+    with ThreadPoolExecutor(1) as pool, _CallLog() as log:
+        highs = pool.submit(highs_mip, qp, HIGHS_LIMIT)
+        t0 = time.perf_counter()
+        r = solve_boolean_lp(qp, time_limit_sec=BOP_LIMIT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref, msg = highs.result()
+    cnt = log.counts()
+    x = r.solution
+    print(f"solve_boolean_lp {BOP_MIP} ({qp.num_constraints} x "
+          f"{qp.num_variables}, maximize), limit {BOP_LIMIT} s: "
+          f"{r.status.name} {r.objective_value!r}, bound {r.best_bound!r}, "
+          f"{dt:.3f} s; HiGHS with {HIGHS_LIMIT} s: {ref!r} ({msg}); "
+          f"strategy_wins {r.strategy_wins}; backends built "
+          f"{sorted(set(log.backends))}, {cnt['batches']} node-LP batches, "
+          f"{cnt['node_lps']} node LPs, {cnt['solvers_built']} BatchSolvers "
+          f"built, device FJ {cnt['fj_calls']} calls; launches "
+          f"{cnt['launches']}", flush=True)
+    require(x is not None and mip_feasible(qp, x)
+            and abs(float(qp.objective_vector @ x) - r.objective_value)
+            <= 1e-9 * (1 + abs(r.objective_value)),
+            f"{BOP_MIP}: the portfolio's incumbent fails the numpy check")
+    sense = -1.0 if qp.maximize else 1.0
+    require(ref is not None
+            and sense * r.best_bound <= sense * ref + 1e-6 * (1 + abs(ref)),
+            f"{BOP_MIP}: the portfolio's bound {r.best_bound!r} cuts off "
+            f"HiGHS's incumbent {ref!r}")
+    node_lp_kernels(BOP_MIP, log.prob, errs)
+    return cnt["launches"]
+
+
+def integral_solver() -> dict:
+    """(c) ``IntegralSolver`` on INTEGRAL_MIP, OPTIMAL at milp's objective.
+    Returns its launches."""
+    qp = battery()[INTEGRAL_MIP]
+    ref, msg = highs_mip(qp)
+    with _CallLog() as log:
+        t0 = time.perf_counter()
+        r = IntegralSolver(device="cuda").solve(qp)
+        dt = time.perf_counter() - t0
+    cnt = log.counts()
+    x = None if r.solution is None else np.asarray(r.solution, float)
+    print(f"IntegralSolver {INTEGRAL_MIP}: {r.status.name} "
+          f"{r.objective_value!r}, milp {ref!r} ({msg}), {dt:.3f} s; "
+          f"backends built {sorted(set(log.backends))}; device FJ "
+          f"{cnt['fj_calls']} calls, {cnt['fj_seconds']:.3f} s; launches "
+          f"{cnt['launches']}", flush=True)
+    require(r.status.name == "OPTIMAL" and ref is not None
+            and abs(r.objective_value - ref) <= 1e-4 * (1 + abs(ref))
+            and mip_feasible(qp, x),
+            f"{INTEGRAL_MIP}: IntegralSolver is not OPTIMAL at milp's "
+            f"objective")
+    return cnt["launches"]
+
+
+def arc_flow_case(label: str, args: tuple, bins: int) -> dict:
+    """``solve_vector_bin_packing`` on one case, equal to ``bins`` and to
+    milp on the same arc-flow MIP.  Returns its launches."""
+    with _Results(bnb) as calls, _CallLog() as log:
+        t0 = time.perf_counter()
+        got, g = solve_vector_bin_packing(*args)
+        dt = time.perf_counter() - t0
+    cnt = log.counts()
+    qp, r = calls.qps[0], calls.results[-1]
+    ref, msg = highs_mip(qp, 3 * HIGHS_LIMIT)
+    print(f"solve_vector_bin_packing {label}: {got} bins ({r.status.name}, "
+          f"{r.num_nodes} nodes), milp {ref!r} ({msg}), {dt:.3f} s; graph "
+          f"{g.num_nodes} nodes, {len(g.arcs)} arcs; backends built "
+          f"{sorted(set(log.backends))}; launches {cnt['launches']}",
+          flush=True)
+    require(r.status.name == "OPTIMAL" and got == bins and ref is not None
+            and round(ref) == bins,
+            f"arc flow {label}: {got} bins, milp {ref!r}, expected {bins}")
+    return cnt["launches"]
+
+
+def arc_flows() -> dict:
+    """(d) tests/test_scheduling_packing.py's three cases and u60 (equal
+    sizes merged, their count the demand).  Returns the launches."""
+    total = {}
+    for k, (args, bins) in enumerate(ARC_FLOW_CASES):
+        _add(total, arc_flow_case(f"test case {k + 1}", args, bins))
+    size, count = np.unique(u_class(U_ARC_FLOW["items"]), return_counts=True)
+    args = ([U_CAPACITY], [[int(s)] for s in size], count.tolist())
+    g = build_arc_flow_graph(*args)
+    require((g.num_nodes, len(g.arcs))
+            == (U_ARC_FLOW["nodes"], U_ARC_FLOW["arcs"]),
+            f"u{U_ARC_FLOW['items']}: graph {g.num_nodes} x {len(g.arcs)}")
+    _add(total, arc_flow_case(f"u{U_ARC_FLOW['items']}", args,
+                              U_ARC_FLOW["bins"]))
+    return total
+
+
+def maxsat_model(seed: int, n: int = MAXSAT["n"], m: int = MAXSAT["m"]):
+    """tests/test_max_hs.py::weighted_maxsat_model on the port's IR:
+    random 3-clauses (bool_or) and unit soft weights in [1, 8]."""
+    rng = np.random.default_rng(seed)
+    clauses = []
+    for _ in range(m):
+        vs = rng.choice(n, 3, replace=False)
+        signs = rng.integers(0, 2, 3)
+        clauses.append([int(v) if s else -int(v) - 1
+                        for v, s in zip(vs, signs)])
+    w = rng.integers(1, 9, n)
+    model = ir.CpModelIR(
+        variables=[ir.IntegerVariableIR(f"x{i}", ir.Domain(0, 1))
+                   for i in range(n)],
+        constraints=[ir.ConstraintIR("bool_or", ir.BoolArgs(c))
+                     for c in clauses],
+        objective=ir.ObjectiveIR(vars=list(range(n)),
+                                 coeffs=[int(v) for v in w]))
+    return model, clauses, w
+
+
+def maxsat_milp(clauses: list, w) -> tuple:
+    """milp on the weighted max-SAT MIP: min w·x with each clause's
+    positive literals plus its negated ones' complements at least 1."""
+    a = np.zeros((len(clauses), len(w)))
+    lo = np.ones(len(clauses))
+    for r, c in enumerate(clauses):
+        for lit in c:
+            if lit >= 0:
+                a[r, lit] += 1
+            else:
+                a[r, -lit - 1] -= 1
+                lo[r] -= 1
+    res = milp(np.asarray(w, float), constraints=LinearConstraint(
+        a, lo, np.inf), bounds=Bounds(0, 1), integrality=np.ones(len(w)))
+    return None if res.x is None else round(res.fun), res.message
+
+
+def max_hs() -> dict:
+    """(e) ``minimize_max_hs`` on MAXSAT's seeds: OPTIMAL with the bound
+    equal to the objective and to milp's, or INFEASIBLE where milp finds
+    none; each call's seconds and the device FJ's share.  Returns the
+    launches."""
+    total = {}
+    for seed in MAXSAT["seeds"]:
+        model, clauses, w = maxsat_model(seed)
+        ref, msg = maxsat_milp(clauses, w)
+        with _CallLog() as log:
+            t0 = time.perf_counter()
+            st, values, bound, conflicts = minimize_max_hs(model)
+            dt = time.perf_counter() - t0
+        cnt = log.counts()
+        _add(total, cnt["launches"])
+        obj = (None if values is None
+               else int(np.asarray(w) @ np.asarray(values)))
+        print(f"minimize_max_hs seed {seed} (n {MAXSAT['n']}, m "
+              f"{MAXSAT['m']}): status {st}, objective {obj}, bound {bound}, "
+              f"{conflicts} conflicts, milp {ref} ({msg}), {dt:.3f} s; "
+              f"backends built {sorted(set(log.backends))}; device FJ "
+              f"{cnt['fj_calls']} calls, {cnt['fj_seconds']:.3f} s "
+              f"({cnt['fj_seconds'] / dt:.1%} of the call); launches "
+              f"{cnt['launches']}", flush=True)
+        require((st == 0 and ref is None)
+                or (st == 1 and obj == bound == ref),
+                f"MaxHS seed {seed}: status {st}, objective {obj}, bound "
+                f"{bound}, milp {ref}")
+    return total
+
+
+def host_front_ends(errs: dict) -> dict:
+    """Phase 12.  Returns the launches of its solves, each counted from 0
+    just before the solve and read just after."""
+    launches = assignment_packing(errs)
+    _add(launches, boolean_portfolio(errs))
+    _add(launches, integral_solver())
+    _add(launches, arc_flows())
+    _add(launches, max_hs())
+    print(f"launches on the host front ends: {launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2393,7 +2727,7 @@ def main() -> int:
     phase("1. environment")
     smi_line = environment()
 
-    phase("2. build the kernels (nvcc -Xptxas -v) and the native core (g++)")
+    phase("2. build the kernels (nvcc -Xptxas -v) and the native cores (g++)")
     t0 = time.perf_counter()
     native = build_native()
     report = _build.build()
@@ -2402,7 +2736,8 @@ def main() -> int:
     native.join()
     require(native.error is None, f"the native build failed: {native.error}")
     print(report.strip())
-    print(f"native core: {native_build.library_path('smalllp').name}")
+    print("native cores:", ", ".join(native_build.library_path(name).name
+                                     for name in NATIVE))
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
     spilled = spmm_spills(report)
     require(not spilled, f"SpMM instantiations spill registers: {spilled}")
@@ -2464,6 +2799,11 @@ def main() -> int:
     mesh_launches = nccl_mesh(bench_qp)
     shard_errs = gloo_ranks()
 
+    phase("12. the host front ends: bin packing (assignment MIP, arc "
+          "flow), BOP, IntegralSolver, MaxHS; matching runs on the host "
+          "(CPU tests only)")
+    host_launches = host_front_ends(errs)
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -2478,7 +2818,8 @@ def main() -> int:
             mip_path_launches=mip_launches[name],
             frontend_launches=front_launches[name],
             mesh_path_launches=mesh_launches[name],
-            mesh_shard_max_abs_err=shard_errs[name], ok=True))
+            mesh_shard_max_abs_err=shard_errs[name],
+            host_front_ends_launches=host_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -2490,7 +2831,8 @@ def main() -> int:
         f64=[spmm["f64 A"], spmm["f64 A^T"]],
         mip_path_launches=mip_launches[SPMM["name"]],
         frontend_launches=front_launches[SPMM["name"]],
-        mesh_path_launches=mesh_launches[SPMM["name"]], ok=True))
+        mesh_path_launches=mesh_launches[SPMM["name"]],
+        host_front_ends_launches=host_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

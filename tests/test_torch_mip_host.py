@@ -94,8 +94,9 @@ def assert_same(a, b, path="result"):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("rel", COPIES)
-def test_copy_text_equals_the_original_apart_from_imports(rel):
+def assert_copy_text(rel):
+    """The port's ``rel`` has the JAX package's text, apart from import
+    lines repointed from ``ortools_tpu`` to ``ortools_tpu_torch``."""
     orig = (ROOT / "ortools_tpu" / rel).read_text().splitlines()
     port = (ROOT / "ortools_tpu_torch" / rel).read_text().splitlines()
     assert len(orig) == len(port), rel
@@ -105,6 +106,11 @@ def test_copy_text_equals_the_original_apart_from_imports(rel):
         assert _IMPORT.match(p), f"{rel}:{k} differs: {p!r}"
         assert p.replace("ortools_tpu_torch", "ortools_tpu") == o, (
             f"{rel}:{k}: {p!r} is not {o!r} repointed")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_text_equals_the_original_apart_from_imports(rel):
+    assert_copy_text(rel)
 
 
 def test_status_enums_match():

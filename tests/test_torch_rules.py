@@ -9,18 +9,26 @@ import torch
 
 import ortools_tpu_torch  # noqa: F401  (sets the precision pins)
 from ortools_tpu_torch import cli, math_opt, mip
+from ortools_tpu_torch._native import build as native_build
 from ortools_tpu_torch.algorithms import KnapsackSolver, SetCoverModel
 from ortools_tpu_torch.algorithms.knapsack import dp_knapsack_torch
 from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
+from ortools_tpu_torch.bop import IntegralSolver
+from ortools_tpu_torch.bop.portfolio import solve_boolean_lp
 from ortools_tpu_torch.graft_entry import dryrun_multichip, start_ranks
 from ortools_tpu_torch.linear_solver import Model, Solver
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.lp import random_lp
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
+from ortools_tpu_torch.packing import BinPackingInstance, solve_bin_packing
+from ortools_tpu_torch.packing.arc_flow import solve_vector_bin_packing
 from ortools_tpu_torch.parallel import make_mesh
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp.batched import solve_batch
+from ortools_tpu_torch.sat import cdcl
+from ortools_tpu_torch.sat import model_ir as ir
 from ortools_tpu_torch.sat.fj_device import device_feasibility_jump
+from ortools_tpu_torch.sat.max_hs import minimize_max_hs
 
 # The tensors are small: one thread each keeps the parallel test run's
 # workers off each other's cores.
@@ -100,6 +108,25 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
     cover.add_element_to_last_subset(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_set_cover_mip(cover)
+    # the host front ends around mip.solve (FFD settles the first packing:
+    # the device is checked before it)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_bin_packing(BinPackingInstance(10, [6, 4]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_vector_bin_packing([6], [[3]], [4])
+    qp01 = random_lp(4, 6, density=0.5, seed=0)
+    qp01.integrality = np.ones(6, dtype=bool)
+    qp01.variable_lower, qp01.variable_upper = np.zeros(6), np.ones(6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IntegralSolver().solve(qp01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_boolean_lp(qp01)
+    maxsat = ir.CpModelIR(
+        variables=[ir.IntegerVariableIR("x", ir.Domain(0, 1))],
+        constraints=[ir.ConstraintIR("bool_or", ir.BoolArgs([0]))],
+        objective=ir.ObjectiveIR(vars=[0], coeffs=[1]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        minimize_max_hs(maxsat)
     # the CLI without --device: a non-zero exit with the same message, and
     # nothing solved
     path = tmp_path / "m.mps"
@@ -107,6 +134,16 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
     assert cli.main(["solve", "--input", str(path)]) != 0
     out = capsys.readouterr()
     assert "device='cpu'" in out.err and "Status" not in out.out
+
+
+def test_cdcl_library_builds_outside_the_source_tree():
+    lib = cdcl._lib()
+    path = native_build.library_path("cdcl")
+    assert path.exists() and path.parent == native_build.OUT_DIR
+    assert native_build.OUT_DIR == ROOT / "build" / "native"
+    assert lib is native_build.load_library("cdcl")
+    src_dir = ROOT / "ortools_tpu_torch" / "_native"
+    assert not list(src_dir.glob("*.so"))
 
 
 def test_tf32_is_off_and_matmul_precision_highest():
