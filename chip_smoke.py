@@ -12,8 +12,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    what ``-Xptxas -v`` says of each (registers, shared memory, spills);
    an SpMM instantiation that spills fails the run.  Beside them, g++
    builds the native small-LP core (``ortools_tpu_torch/_native/smalllp.cc``)
-   that the MIP path's simplex node backend loads, and the CDCL core
-   (``cdcl.cc``) that MaxHS loads.
+   that the MIP path's simplex node backend loads, the CDCL core
+   (``cdcl.cc``) that MaxHS loads, and CP-SAT's lazy-clause-generation
+   and pseudo-Boolean cores (``lcg.cc``, ``pbsat.cc``).
 3. Each kernel against its plain PyTorch version on the card: A (8x128)
    and its transpose (128x8) at the bench shape, every other block shape
    the kernels take and its transpose at a smaller size, a skewed matrix
@@ -134,10 +135,28 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    the launches of each solve, the counters set to 0 just before it and
    read just after.  Matching is not on the card: its blossom runs on the
    host and its MIP fallback cannot be reached on complete even graphs.
+13. CP-SAT (run before phase 8's lines), every solve through
+   ``CpSolver(device="cuda")`` with its solution checked by the port's
+   ``checker.solution_is_feasible``: ft10 (``tests/data/ft10.jssp``, the
+   interval + no_overlap + precedence model, makespan minimized) under the
+   defaults with a 120 s limit, OPTIMAL at 930 with the bound at 930 and
+   every precedence and machine checked in numpy; ``core_algorithm=
+   "max_hs"`` on tests/test_max_hs.py's weighted max-SAT models (seeds 1
+   and 7) built with the port's ``CpModel``, OPTIMAL at milp's objective,
+   with the node backends that ``choose_backend`` built and the device
+   FJ's calls; one small solve on each other route (a planted 3-SAT model
+   on the CDCL core, a feasible and an infeasible bin-assignment model on
+   the pseudo-Boolean core, a planted integer model on LCG and on the
+   integer encoding, an optimization on the DFS engine with the node LP
+   propagator at milp's optimum) and 8-queens enumerated (92 solutions);
+   the route each solve took, its seconds, conflicts and peak device
+   memory, and its launches, the counters set to 0 just before it and read
+   just after.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
-   path, on the front end, on the mesh path and on the host front ends,
-   and the fast SpMV's bf16 CSR yardstick), the total time, the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+   path, on the front end, on the mesh path, on the host front ends and
+   on CP-SAT, and the fast SpMV's bf16 CSR yardstick), the total time,
+   the card's name and power limit, and last ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -191,8 +210,18 @@ from ortools_tpu_torch.pdlp import batched
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
 from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.pdlp.params import RestartStrategy
-from ortools_tpu_torch.sat import fj_device
+from ortools_tpu_torch.sat import (CpModel, CpSolver,
+                                   CpSolverSolutionCallback, fj_device)
+from ortools_tpu_torch.sat import core_guided as cp_core_guided
+from ortools_tpu_torch.sat import engine as cp_engine
+from ortools_tpu_torch.sat import integer_encoding as cp_encoding
+from ortools_tpu_torch.sat import lcg as cp_lcg
+from ortools_tpu_torch.sat import lp_propagator as cp_lp
+from ortools_tpu_torch.sat import max_hs as cp_max_hs
 from ortools_tpu_torch.sat import model_ir as ir
+from ortools_tpu_torch.sat import pb_bridge as cp_pb_bridge
+from ortools_tpu_torch.sat import pure_sat as cp_pure_sat
+from ortools_tpu_torch.sat.checker import solution_is_feasible
 from ortools_tpu_torch.sat.max_hs import minimize_max_hs
 from ortools_tpu_torch.utils.status import TerminationReason
 
@@ -296,15 +325,16 @@ def environment() -> str:
     return smi.splitlines()[0]
 
 
-# The native cores: the simplex node backend's and MaxHS's CDCL solver
-NATIVE = ("smalllp", "cdcl")
+# The native cores: the simplex node backend's, MaxHS's CDCL solver, and
+# CP-SAT's lazy-clause-generation and pseudo-Boolean cores
+NATIVE = ("smalllp", "cdcl", "lcg", "pbsat")
 
 
 def build_native() -> threading.Thread:
-    """Build ``ortools_tpu_torch/_native/{smalllp,cdcl}.cc`` with g++ from
-    the sources, on a thread beside the kernels' nvcc: any library left
-    from an earlier build is removed first.  The thread's ``error`` is the
-    build's exception, or None."""
+    """Build ``ortools_tpu_torch/_native/{smalllp,cdcl,lcg,pbsat}.cc`` with
+    g++ from the sources, on a thread beside the kernels' nvcc: any library
+    left from an earlier build is removed first.  The thread's ``error`` is
+    the build's exception, or None."""
     shutil.rmtree(native_build.OUT_DIR, ignore_errors=True)
 
     def run():
@@ -2711,6 +2741,344 @@ def host_front_ends(errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. CP-SAT
+# ---------------------------------------------------------------------------
+
+FT10 = ROOT / "tests" / "data" / "ft10.jssp"
+FT10_OPTIMUM = 930
+FT10_LIMIT = 120.0
+CP_MAXSAT_SEEDS = (1, 7)
+
+
+def parse_jssp(text: str) -> list:
+    """``num_jobs num_machines``, then one line of (machine, duration)
+    pairs a job; '#' lines are comments."""
+    rows = [[int(v) for v in ln.split()] for ln in text.splitlines()
+            if ln.strip() and not ln.lstrip().startswith("#")]
+    nj, nm = rows[0]
+    return [[(r[2 * k], r[2 * k + 1]) for k in range(nm)]
+            for r in rows[1:1 + nj]]
+
+
+def jobshop_cp(jobs: list) -> tuple:
+    """The interval + no_overlap job-shop model (scheduling/jobshop.py's CP
+    route without the order booleans): a start and a fixed-size interval an
+    operation, precedences within each job, one no_overlap a machine, and
+    the makespan, the max of the jobs' last ends, minimized."""
+    m = CpModel()
+    horizon = sum(d for job in jobs for _, d in job)
+    starts, machines, ends = [], {}, []
+    for j, job in enumerate(jobs):
+        row, prev = [], None
+        for o, (mach, dur) in enumerate(job):
+            s = m.new_int_var(0, horizon, f"s_{j}_{o}")
+            machines.setdefault(mach, []).append(
+                m.new_fixed_size_interval_var(s, dur, f"iv_{j}_{o}"))
+            if prev is not None:
+                m.add(s >= prev)
+            prev = s + dur
+            row.append(s)
+        starts.append(row)
+        ends.append(prev)
+    for ivs in machines.values():
+        m.add_no_overlap(ivs)
+    makespan = m.new_int_var(0, horizon, "makespan")
+    m.add_max_equality(makespan, ends)
+    m.minimize(makespan)
+    return m, starts, makespan
+
+
+def check_schedule(jobs: list, starts: np.ndarray, makespan: int) -> None:
+    """Every precedence and every machine checked in numpy, and the
+    makespan the last end."""
+    dur = np.array([[d for _, d in job] for job in jobs])
+    mach = np.array([[mm for mm, _ in job] for job in jobs])
+    ends = starts + dur
+    require(bool((starts >= 0).all()), "a negative start")
+    require(bool((starts[:, 1:] >= ends[:, :-1]).all()),
+            "a job's operation starts before its predecessor ends")
+    for k in np.unique(mach):
+        s, e = starts[mach == k], ends[mach == k]
+        order = np.argsort(s, kind="stable")
+        require(bool((s[order][1:] >= e[order][:-1]).all()),
+                f"machine {k} runs two operations at once")
+    require(int(ends.max()) == makespan,
+            f"makespan {makespan} is not the last end {int(ends.max())}")
+
+
+class _Routes:
+    """For the length of a CP-SAT solve, records which of ``solve_model``'s
+    engines answered (returned something other than None): the pure-PB
+    core, pure SAT, LCG, the integer encoding, the root LP, the node LP
+    propagator, OLL, MaxHS and the DFS engine's search."""
+
+    SPIES = (("pb", cp_pb_bridge, "try_pure_pb"),
+             ("pure_sat", cp_pure_sat, "solve_pure_sat"),
+             ("lcg", cp_lcg, "solve_lcg"),
+             ("encoding", cp_encoding, "solve_integer_cdcl"),
+             ("root_lp", cp_lp, "root_lp_relaxation"),
+             ("node_lp", cp_lp, "NodeLpPropagator"),
+             ("oll", cp_core_guided, "minimize_core_guided"),
+             ("max_hs", cp_max_hs, "minimize_max_hs"),
+             ("search", cp_engine.Engine, "search"))
+
+    def __enter__(self):
+        self.seen, self._orig = [], []
+        for name, owner, attr in self.SPIES:
+            orig = getattr(owner, attr)
+            self._orig.append((owner, attr, orig))
+
+            def spy(*a, _name=name, _orig=orig, **k):
+                out = _orig(*a, **k)
+                if out is not None and getattr(out, "ok", True):
+                    self.seen.append(_name)
+                return out
+
+            setattr(owner, attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in self._orig:
+            setattr(owner, attr, orig)
+
+
+def cp_solve(label: str, model, params: dict, callback=None) -> dict:
+    """One ``CpSolver(device="cuda")`` solve, the launch counters set to 0
+    just before it and read just after: its status, objective, bound,
+    conflicts, branches, seconds, peak device memory above what was held
+    before it, the routes it took, the node backends that ``mip.solve``'s
+    ``choose_backend`` built and the device FJ's calls.  Every solution is
+    checked with the port's ``checker.solution_is_feasible``."""
+    solver = CpSolver(device="cuda")
+    for k, v in params.items():
+        setattr(solver.parameters, k, v)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _CallLog() as log, _Routes() as routes:
+        t0 = time.perf_counter()
+        status = solver.solve(model, callback)
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    cnt = log.counts()
+    r = solver.response
+    if r.solution is not None:
+        require(solution_is_feasible(model.ir, r.solution),
+                f"{label}: the solution fails the checker")
+    out = dict(status=status.name, objective=r.objective_value,
+               bound=r.best_objective_bound, conflicts=r.num_conflicts,
+               branches=r.num_branches, seconds=dt, peak_bytes=peak,
+               routes=sorted(set(routes.seen)), launches=cnt["launches"],
+               backends=sorted(set(log.backends)), fj_calls=cnt["fj_calls"],
+               solver=solver)
+    print(f"{label}: {out['status']}, objective {out['objective']!r}, bound "
+          f"{out['bound']!r}, {out['conflicts']} conflicts, "
+          f"{out['branches']} branches, {dt:.3f} s; routes {out['routes']}; "
+          f"peak device memory +{peak} bytes; launches {out['launches']}; "
+          f"node backends built {out['backends']}; device FJ "
+          f"{out['fj_calls']} calls", flush=True)
+    return out
+
+
+def ft10_solve() -> dict:
+    """ft10 under CpSolver's defaults with a 120 s limit: OPTIMAL at 930
+    with the bound at 930, and the schedule checked in numpy."""
+    jobs = parse_jssp(FT10.read_text())
+    model, starts, makespan = jobshop_cp(jobs)
+    print(f"ft10: {len(jobs)} jobs x {len(jobs[0])} machines, "
+          f"{len(model.ir.variables)} variables, "
+          f"{len(model.ir.constraints)} constraints", flush=True)
+    out = cp_solve("ft10", model, dict(max_time_in_seconds=FT10_LIMIT))
+    require(out["status"] == "OPTIMAL"
+            and out["objective"] == out["bound"] == FT10_OPTIMUM,
+            f"ft10: {out['status']} {out['objective']} bound "
+            f"{out['bound']}, not OPTIMAL at {FT10_OPTIMUM}")
+    s = out["solver"]
+    check_schedule(jobs, np.array([s.values(row) for row in starts]),
+                   s.value(makespan))
+    return out
+
+
+def cp_maxsat(seed: int) -> tuple:
+    """tests/test_max_hs.py::weighted_maxsat_model with the port's
+    CpModel (the clauses of ``maxsat_model``), and milp's optimum."""
+    _, clauses, w = maxsat_model(seed)
+    m = CpModel()
+    xs = [m.new_bool_var(f"x{i}") for i in range(len(w))]
+    for c in clauses:
+        m.add_bool_or([xs[v] if v >= 0 else ~xs[-v - 1] for v in c])
+    m.minimize(sum(int(wi) * x for wi, x in zip(w, xs)))
+    return m, maxsat_milp(clauses, w)
+
+
+def cp_max_hs_solves() -> list:
+    """core_algorithm="max_hs" on seeds 1 and 7: OPTIMAL at milp's
+    objective (INFEASIBLE where milp finds none)."""
+    outs = []
+    for seed in CP_MAXSAT_SEEDS:
+        model, (ref, msg) = cp_maxsat(seed)
+        out = cp_solve(f"max_hs seed {seed} (milp {ref}, {msg})", model,
+                       dict(core_algorithm="max_hs"))
+        require("max_hs" in out["routes"], f"max_hs seed {seed}: routes "
+                f"{out['routes']}")
+        require((ref is None and out["status"] == "INFEASIBLE")
+                or (out["status"] == "OPTIMAL"
+                    and out["objective"] == out["bound"] == ref),
+                f"max_hs seed {seed}: {out['status']} {out['objective']}, "
+                f"milp {ref}")
+        print(f"max_hs seed {seed}: {out['launches']} launches (none "
+              f"expected: the hitting-set MIPs are small enough for the "
+              f"host simplex), backends {out['backends']}", flush=True)
+        outs.append(out)
+    return outs
+
+
+def planted_sat(n: int = 300, m: int = 1200, seed: int = 2) -> CpModel:
+    """Random 3-clauses that a planted assignment satisfies."""
+    rng = np.random.default_rng(seed)
+    plant = rng.integers(0, 2, n)
+    model = CpModel()
+    xs = [model.new_bool_var(f"x{i}") for i in range(n)]
+    while m:
+        vs = rng.choice(n, 3, replace=False)
+        signs = rng.integers(0, 2, 3)
+        if not any(plant[v] == s for v, s in zip(vs, signs)):
+            continue
+        model.add_bool_or([xs[v] if s else ~xs[v] for v, s in zip(vs, signs)])
+        m -= 1
+    return model
+
+
+def bins_pb(items: int = 8, bins: int = 5, capacity: int = 7) -> CpModel:
+    """Each item in exactly one bin under a weighted capacity row a bin
+    (weights 3 and 4): pseudo-Boolean rows that presolve keeps linear."""
+    m = CpModel()
+    g = [[m.new_bool_var(f"g{i}_{j}") for j in range(bins)]
+         for i in range(items)]
+    for row in g:
+        m.add_exactly_one(row)
+    for j in range(bins):
+        m.add(sum((3 + (i + j) % 2) * g[i][j] for i in range(items))
+              <= capacity)
+    return m
+
+
+def planted_integer(n: int = 10, rows: int = 8, hi: int = 100,
+                    seed: int = 4) -> CpModel:
+    """Integer rows around a planted point in [0, hi]^n."""
+    rng = np.random.default_rng(seed)
+    point = rng.integers(0, hi + 1, n)
+    m = CpModel()
+    xs = [m.new_int_var(0, hi, f"x{i}") for i in range(n)]
+    for _ in range(rows):
+        idx = rng.choice(n, 4, replace=False)
+        coef = rng.integers(-5, 6, 4)
+        val = int(coef @ point[idx])
+        m.add(sum(int(c) * xs[int(i)] for c, i in zip(coef, idx))
+              <= val + int(rng.integers(0, 4)))
+        m.add(sum(int(c) * xs[int(i)] for c, i in zip(coef, idx))
+              >= val - int(rng.integers(0, 4)))
+    return m
+
+
+def chain_lp_model() -> tuple:
+    """tests/test_lp_propagator.py's chain: x_i + x_{i+1} <= 8, sum >= 12,
+    minimize sum (i % 2 + 1) x_i over [0, 6]^6, and milp's optimum."""
+    n = 6
+    m = CpModel()
+    xs = [m.new_int_var(0, 6, f"x{i}") for i in range(n)]
+    for i in range(n - 1):
+        m.add(xs[i] + xs[i + 1] <= 8)
+    m.add(sum(xs) >= 12)
+    c = np.array([i % 2 + 1 for i in range(n)], float)
+    m.minimize(sum(int(ci) * x for ci, x in zip(c, xs)))
+    a = np.vstack([np.eye(n)[:-1] + np.eye(n, k=1)[:-1], np.ones((1, n))])
+    res = milp(c, constraints=LinearConstraint(
+        a, np.r_[np.full(n - 1, -np.inf), 12], np.r_[np.full(n - 1, 8),
+                                                    np.inf]),
+        bounds=Bounds(0, 6), integrality=np.ones(n))
+    return m, round(res.fun)
+
+
+def queens_model(n: int) -> CpModel:
+    m = CpModel()
+    q = [m.new_int_var(0, n - 1, f"q{i}") for i in range(n)]
+    m.add_all_different(q)
+    m.add_all_different([q[i] + i for i in range(n)])
+    m.add_all_different([q[i] - i for i in range(n)])
+    return m
+
+
+class _Collect(CpSolverSolutionCallback):
+    def __init__(self):
+        super().__init__()
+        self.solutions = []
+
+    def on_solution_callback(self):
+        self.solutions.append(tuple(self._values))
+
+
+def cp_routes() -> list:
+    """One small solve on each other route: pure SAT (CDCL), the PB core,
+    LCG, the integer encoding, the DFS engine with the node LP propagator,
+    and 8-queens enumerated (92 solutions, each checked)."""
+    outs = []
+    cases = (
+        ("pure SAT, planted 3-SAT (300 vars, 1200 clauses)", planted_sat(),
+         {}, "pure_sat", "OPTIMAL"),
+        ("pseudo-Boolean, 8 items in 5 bins", bins_pb(), {}, "pb",
+         "OPTIMAL"),
+        ("pseudo-Boolean, 6 items in 5 bins of one item (infeasible)",
+         bins_pb(6, 5, 5), {}, "pb", "INFEASIBLE"),
+        ("integer decision on LCG", planted_integer(), {}, "lcg",
+         "OPTIMAL"),
+        ("integer decision on the integer encoding", planted_integer(),
+         dict(use_lcg=False), "encoding", "OPTIMAL"))
+    for label, model, params, route, status in cases:
+        out = cp_solve(label, model, params)
+        require(route in out["routes"] and out["status"] == status,
+                f"{label}: {out['status']}, routes {out['routes']}")
+        outs.append(out)
+    model, ref = chain_lp_model()
+    out = cp_solve(f"optimization on the DFS engine with the node LP "
+                   f"(milp {ref})", model,
+                   dict(use_lcg=False, use_integer_cdcl=False))
+    require({"root_lp", "node_lp", "search"} <= set(out["routes"])
+            and out["status"] == "OPTIMAL"
+            and out["objective"] == out["bound"] == ref,
+            f"DFS with the node LP: {out['status']} {out['objective']}, "
+            f"routes {out['routes']}, milp {ref}")
+    outs.append(out)
+    model, cb = queens_model(8), _Collect()
+    out = cp_solve("8-queens, every solution", model,
+                   dict(enumerate_all_solutions=True), cb)
+    for sol in cb.solutions:
+        require(solution_is_feasible(model.ir, list(sol)),
+                "8-queens: a solution fails the checker")
+    require(out["status"] == "OPTIMAL" and len(set(cb.solutions)) == 92
+            == len(cb.solutions), f"8-queens: {out['status']}, "
+            f"{len(cb.solutions)} solutions")
+    print(f"8-queens: {len(cb.solutions)} distinct solutions", flush=True)
+    outs.append(out)
+    return outs
+
+
+def cp_sat() -> dict:
+    """Phase 13.  Returns the launches of its solves, each counted from 0
+    just before the solve and read just after."""
+    t0 = time.perf_counter()
+    outs = [ft10_solve()] + cp_max_hs_solves() + cp_routes()
+    launches = {}
+    for out in outs:
+        _add(launches, out["launches"])
+    print(f"CP-SAT: {len(outs)} solves in {time.perf_counter() - t0:.1f} s; "
+          f"largest peak device memory +"
+          f"{max(o['peak_bytes'] for o in outs)} bytes; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2804,6 +3172,11 @@ def main() -> int:
           "(CPU tests only)")
     host_launches = host_front_ends(errs)
 
+    phase("13. CP-SAT: ft10 at full width, MaxHS through CpSolver, pure "
+          "SAT, PB, LCG, the integer encoding, the DFS engine with the node "
+          "LP, 8-queens enumerated")
+    cp_launches = cp_sat()
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -2819,7 +3192,8 @@ def main() -> int:
             frontend_launches=front_launches[name],
             mesh_path_launches=mesh_launches[name],
             mesh_shard_max_abs_err=shard_errs[name],
-            host_front_ends_launches=host_launches[name], ok=True))
+            host_front_ends_launches=host_launches[name],
+            cp_sat_launches=cp_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -2832,7 +3206,8 @@ def main() -> int:
         mip_path_launches=mip_launches[SPMM["name"]],
         frontend_launches=front_launches[SPMM["name"]],
         mesh_path_launches=mesh_launches[SPMM["name"]],
-        host_front_ends_launches=host_launches[SPMM["name"]], ok=True))
+        host_front_ends_launches=host_launches[SPMM["name"]],
+        cp_sat_launches=cp_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

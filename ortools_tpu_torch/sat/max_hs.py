@@ -13,11 +13,10 @@ Compared with the OLL descent (sat/core_guided.py) this pays a MIP per
 round but never grows the formula with totalizers — the reference keeps
 both in its portfolio for the same reason.
 
-The JAX package reaches this loop through CP-SAT's solve
-(``core_algorithm="max_hs"``).  The port has no CP-SAT solve, so
-``minimize_max_hs`` is itself the entry point: it takes a ``CpModelIR``
-(``sat/model_ir.py``) and solves each hitting-set MIP on ``device``, the
-card by default.
+CP-SAT's solve reaches this loop under ``core_algorithm="max_hs"``
+(``sat/solver.py::solve_model`` passes its ``device`` on); it can also be
+called alone on a ``CpModelIR`` (``sat/model_ir.py``).  Each hitting-set
+MIP runs on ``device``, the card by default.
 """
 
 from __future__ import annotations

@@ -684,3 +684,37 @@ def test_one_rank_nccl_mesh_solve_equals_the_single_path(cuda, tmp_path):
                                       r.primal_solution)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cp_sat_max_hs_on_card_equals_the_cpu_solve(cuda):
+    """CP-SAT's MaxHS route runs its hitting-set MIPs on the card, and
+    proves the brute-force optimum, as the CPU solve does
+    (tests/test_max_hs.py's model, seed 7)."""
+    import itertools
+
+    from ortools_tpu_torch.sat import CpModel, CpSolver
+    from ortools_tpu_torch.sat.checker import solution_is_feasible
+
+    rng = np.random.default_rng(7)
+    model = CpModel()
+    xs = [model.new_bool_var(f"x{i}") for i in range(10)]
+    for _ in range(18):
+        vs = rng.choice(10, 3, replace=False)
+        signs = rng.integers(0, 2, 3)
+        model.add_bool_or([xs[v] if s else ~xs[v]
+                           for v, s in zip(vs, signs)])
+    w = rng.integers(1, 9, 10)
+    model.minimize(sum(int(wi) * x for wi, x in zip(w, xs)))
+    best = min(int(w @ np.array(bits))
+               for bits in itertools.product([0, 1], repeat=10)
+               if solution_is_feasible(model.ir, list(bits)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        solver = CpSolver(device=device)
+        solver.parameters.core_algorithm = "max_hs"
+        assert solver.solve(model).name == "OPTIMAL"
+        out[device] = solver.response
+    for r in out.values():
+        assert r.objective_value == r.best_objective_bound == best
+        assert solution_is_feasible(model.ir, r.solution)

@@ -44,7 +44,7 @@ from ortools_tpu_torch.pdlp import solver as T
 from tests.test_torch_pdlp import (_presolve_lp, assert_close, jax_v0,
                                    port_qp, problem_arrays, scipy_solve)
 from tests.torch_mesh_ranks import (MeshSpec, mesh_layout, mesh_products,
-                                   run_tasks)
+                                   run_tasks, timed_solve)
 
 torch.set_num_threads(1)
 
@@ -95,8 +95,12 @@ SOLVES = {
 }
 PRODUCTS = {"1d": (8,), "2d": (2, 4)}
 # Solves that no tolerance ends, so the clock does: every rank must stop
-# at the same iteration although their clocks differ (``Mesh.any``).
+# at the same iteration although their clocks differ (``Mesh.any``).  The
+# limit is at least TIMED_LIMIT seconds, and at least three times a
+# warm-up major's set-up and major (``timed_solve``), so that a loaded
+# host's set-up cannot use it up before the first major.
 TIMED = {"timed_1d": ((8,), dict(num_shards=8)), "timed_2d": ((2, 4), {})}
+TIMED_LIMIT = 2.0
 
 
 def _names(shape):
@@ -167,11 +171,11 @@ def _tasks(world: int):
             names.append("products_" + label)
             jax_side["products_" + label] = (ax, aty)
         for label, (shape, kw) in TIMED.items():
-            tasks.append((tsolve, dict(
+            tasks.append((timed_solve, dict(
                 qp=port_qp(qp), params=TParams(
                     dtype=torch.float64, eps_optimal_absolute=0.0,
                     eps_optimal_relative=0.0, iteration_limit=10**7,
-                    time_sec_limit=1.0, **kw),
+                    time_sec_limit=TIMED_LIMIT, **kw),
                 device="cpu", mesh=MeshSpec(shape, _names(shape)))))
             names.append(label)
         tasks.append((tsolve, dict(
@@ -402,8 +406,13 @@ def test_1d_mesh_equals_the_single_device_solve(world8):
 def test_time_limit_stops_every_rank_at_the_same_iteration(world8, label):
     """The ranks' clocks differ; ``Mesh.any`` makes them stop together."""
     ranks = [got[label] for got in world8["ranks"]]
+    assert not isinstance(ranks[0], Exception), ranks[0]
+    limits = {limit for _, limit in ranks}
+    assert len(limits) == 1 and limits.pop() >= TIMED_LIMIT
+    ranks = [r for r, _ in ranks]
     r0 = ranks[0]
-    assert not isinstance(r0, Exception), r0
+    print(f"{label}: limit {world8['ranks'][0][label][1]!r} s, stopped at "
+          f"iteration {r0.iterations}")
     assert r0.termination_reason.name == "TIME_LIMIT"
     assert r0.iterations > 0
     for r in ranks[1:]:

@@ -25,10 +25,11 @@ from ortools_tpu_torch.packing.arc_flow import solve_vector_bin_packing
 from ortools_tpu_torch.parallel import make_mesh
 from ortools_tpu_torch.pdlp import PdhgParams, solve
 from ortools_tpu_torch.pdlp.batched import solve_batch
-from ortools_tpu_torch.sat import cdcl
+from ortools_tpu_torch.sat import CpModel, CpSolver, cdcl, lcg, pb_solver
 from ortools_tpu_torch.sat import model_ir as ir
 from ortools_tpu_torch.sat.fj_device import device_feasibility_jump
 from ortools_tpu_torch.sat.max_hs import minimize_max_hs
+from ortools_tpu_torch.sat.solver import solve_model
 
 # The tensors are small: one thread each keeps the parallel test run's
 # workers off each other's cores.
@@ -127,6 +128,15 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
         objective=ir.ObjectiveIR(vars=[0], coeffs=[1]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         minimize_max_hs(maxsat)
+    # CP-SAT: the device is resolved before any work, on every route
+    cp = CpModel()
+    cp.add_bool_or([cp.new_bool_var("x")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CpSolver().solve(cp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_model(cp.ir)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_model(maxsat)
     # the CLI without --device: a non-zero exit with the same message, and
     # nothing solved
     path = tmp_path / "m.mps"
@@ -144,6 +154,45 @@ def test_cdcl_library_builds_outside_the_source_tree():
     assert lib is native_build.load_library("cdcl")
     src_dir = ROOT / "ortools_tpu_torch" / "_native"
     assert not list(src_dir.glob("*.so"))
+
+
+@pytest.mark.parametrize("name,load", [("lcg", lcg._lib),
+                                       ("pbsat", pb_solver._lib)])
+def test_cp_sat_native_cores_build_outside_the_source_tree(name, load):
+    lib = load()
+    path = native_build.library_path(name)
+    assert path.exists() and path.parent == native_build.OUT_DIR
+    assert lib is native_build.load_library(name)
+    src_dir = ROOT / "ortools_tpu_torch" / "_native"
+    assert not list(src_dir.glob("*.so"))
+
+
+def test_cp_sat_portfolio_is_not_ported_yet():
+    """num_workers > 1 reaches the portfolio (sat/solver.py's
+    _solve_portfolio), whose modules come in a later slice: the lazy import
+    fails by name, and nothing else is reached."""
+    m = CpModel()
+    x = m.new_int_var(0, 10, "x")
+    y = m.new_int_var(0, 10, "y")
+    m.add(x + 2 * y <= 14)
+    m.maximize(3 * x + 4 * y)
+    s = CpSolver(device="cpu")
+    s.parameters.num_workers = 2
+    with pytest.raises(ModuleNotFoundError,
+                       match="ortools_tpu_torch.sat.portfolio"):
+        s.solve(m)
+    s.parameters.num_workers = 1
+    assert s.solve(m).name == "OPTIMAL" and s.objective_value == 38
+
+
+def test_port_file_list_covers_the_cp_sat_modules():
+    names = {str(p.relative_to(ROOT / "ortools_tpu_torch"))
+             for p in PORT_FILES if "ortools_tpu_torch" in p.parts}
+    for rel in ("sat/cp_model.py", "sat/solver.py", "sat/engine.py",
+                "sat/presolve.py", "sat/lcg.py", "sat/pb_solver.py",
+                "sat/lp_propagator.py", "algorithms/symmetry.py",
+                "utils/logging_util.py"):
+        assert rel in names, rel
 
 
 def test_tf32_is_off_and_matmul_precision_highest():

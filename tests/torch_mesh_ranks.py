@@ -5,6 +5,7 @@ their target by name, so it lives in this module, which imports no JAX:
 each rank runs ``run_tasks`` on a list of ``(fn, kwargs)``.
 """
 
+import dataclasses
 from typing import Any, List, NamedTuple, Sequence
 
 import torch
@@ -63,3 +64,24 @@ def mesh_products(qp, params, mesh, x, y, device="cpu"):
     as_t = dict(dtype=prob.c.dtype, device=prob.c.device)
     return (mv.matvec(torch.as_tensor(x, **as_t)).cpu().numpy(),
             mv.rmatvec(torch.as_tensor(y, **as_t)).cpu().numpy())
+
+
+def timed_solve(qp, params, mesh, device="cpu", margin=3.0):
+    """``params``' time-limited solve on ``mesh``, with a limit that its
+    set-up cannot eat.
+
+    The solve's clock starts before the rank scales and splits the
+    problem, as the JAX package's does, so on a loaded host set-up alone
+    can outlast a fixed limit and the ranks stop at iteration 0.  A
+    warm-up solve of one major (no time limit) first measures set-up plus
+    a major on every rank; the timed solve then gets ``margin`` times the
+    slowest rank's warm-up, or ``params.time_sec_limit`` if that is more.
+    Every rank gets the same limit.  Returns ``(result, limit)``."""
+    warm = S.solve(qp, dataclasses.replace(
+        params, iteration_limit=params.termination_check_frequency,
+        time_sec_limit=float("inf")), device=device, mesh=mesh)
+    slowest = torch.tensor([warm.solve_time_sec], dtype=torch.float64)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    limit = max(params.time_sec_limit, margin * float(slowest[0]))
+    return S.solve(qp, dataclasses.replace(params, time_sec_limit=limit),
+                   device=device, mesh=mesh), limit
