@@ -152,9 +152,39 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    the route each solve took, its seconds, conflicts and peak device
    memory, and its launches, the counters set to 0 just before it and read
    just after.
+14. CP-SAT's portfolios, model I/O, the graph algorithms and routing (run
+   before phase 8's lines), every solve on the card's default device:
+   ft10 under ``num_workers=8`` and a 20 s limit, interleaved and then
+   forked (``interleave_search=False``), each FEASIBLE or OPTIMAL with
+   930 <= makespan and bound <= 930 and the schedule checked; the
+   shared-tree portfolio on a 0/1 knapsack (n 20) OPTIMAL at milp's
+   optimum; each forked solve under a SIGALRM guard, with the workers
+   forked, exited, terminated and left alive counted, none alive after;
+   then the SpMV kernels against their plain versions on a 2048^2 matrix
+   (the CUDA context survives the forks); phase 13's max-SAT models
+   written as WCNF and read back through ``sat_io`` (the IR equal to the
+   ``CpModel``'s, solved to milp's optimum), a model through
+   ``model_to_json`` / ``model_from_json``, ``python -m
+   ortools_tpu_torch.sat.runner`` on a WCNF file in a subprocess (its
+   Objective milp's), PHP(7, 6) on the CDCL core with its DRAT proof
+   checked by ``drat.check_drat``; ``SimpleMaxFlow`` and
+   ``dijkstra_shortest_path`` on 100,000 nodes and 10^6 arcs against
+   scipy, ``LinearSumAssignment`` at 1,000 x 1,000 against scipy,
+   ``SimpleMinCostFlow`` on a 100 x 100 transportation problem against
+   HiGHS, ``christofides_tsp`` on 200 points within 1.5x the 1-tree
+   bound; a 101-node CVRP (12 vehicles of 100) and a 101-node VRPTW of
+   Solomon R1's shape (written as Solomon text, read by
+   ``parse_solomon``), each under GLS for 10 s with every visit,
+   capacity and time window checked in numpy; a 10-node TSP under
+   ``cp_sat_certification_share=0.5`` and ``solve_with_cp_sat`` at the
+   brute-force optimum; ``schedule_route_with_breaks`` on
+   tests/test_routing.py:318's case.  Each solve prints its seconds, its
+   peak device memory and its launches, the counters set to 0 just
+   before it and read just after.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
-   path, on the front end, on the mesh path, on the host front ends and
-   on CP-SAT, and the fast SpMV's bf16 CSR yardstick), the total time,
+   path, on the front end, on the mesh path, on the host front ends, on
+   CP-SAT and on phase 14, the SpMVs' errors after the forks, and the
+   fast SpMV's bf16 CSR yardstick), the total time,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
 """
@@ -162,10 +192,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -178,7 +211,9 @@ from pathlib import Path
 import numpy as np
 import scipy.sparse as sp
 import torch
-from scipy.optimize import Bounds, LinearConstraint, linprog, milp
+from scipy.optimize import (Bounds, LinearConstraint, linear_sum_assignment,
+                            linprog, milp)
+from scipy.sparse.csgraph import dijkstra as scipy_dijkstra, maximum_flow
 
 import ortools_tpu_torch
 import ortools_tpu_torch.pdlp as pdlp_pkg
@@ -190,6 +225,10 @@ from ortools_tpu_torch.algorithms.knapsack import (dp_knapsack_table,
 from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
 from ortools_tpu_torch.bop import IntegralSolver
 from ortools_tpu_torch.bop.portfolio import solve_boolean_lp
+from ortools_tpu_torch.graph import (LinearSumAssignment, SimpleMaxFlow,
+                                     SimpleMinCostFlow, dijkstra_shortest_path)
+from ortools_tpu_torch.graph.tsp_paths import (christofides_tsp,
+                                               one_tree_lower_bound)
 from ortools_tpu_torch.linear_solver import LinearExpr, Model, Solver
 from ortools_tpu_torch.mip import MipParams
 from ortools_tpu_torch.mip import branch_and_bound as bnb
@@ -210,19 +249,32 @@ from ortools_tpu_torch.pdlp import batched
 from ortools_tpu_torch.pdlp import solver as pdlp_solver
 from ortools_tpu_torch.pdlp.batched import solve_batch
 from ortools_tpu_torch.pdlp.params import RestartStrategy
+from ortools_tpu_torch.routing import (LocalSearchMetaheuristic,
+                                       RoutingIndexManager, RoutingModel,
+                                       default_routing_search_parameters,
+                                       sat_path)
+from ortools_tpu_torch.routing.breaks import (BreakInterval,
+                                              schedule_route_with_breaks)
+from ortools_tpu_torch.routing.parsers import parse_solomon
 from ortools_tpu_torch.sat import (CpModel, CpSolver,
                                    CpSolverSolutionCallback, fj_device)
+from ortools_tpu_torch.sat import cdcl as cp_cdcl
 from ortools_tpu_torch.sat import core_guided as cp_core_guided
+from ortools_tpu_torch.sat import drat as cp_drat
 from ortools_tpu_torch.sat import engine as cp_engine
 from ortools_tpu_torch.sat import integer_encoding as cp_encoding
 from ortools_tpu_torch.sat import lcg as cp_lcg
 from ortools_tpu_torch.sat import lp_propagator as cp_lp
 from ortools_tpu_torch.sat import max_hs as cp_max_hs
 from ortools_tpu_torch.sat import model_ir as ir
+from ortools_tpu_torch.sat import parallel_portfolio as cp_parallel
 from ortools_tpu_torch.sat import pb_bridge as cp_pb_bridge
 from ortools_tpu_torch.sat import pure_sat as cp_pure_sat
+from ortools_tpu_torch.sat import sat_io as cp_sat_io
+from ortools_tpu_torch.sat import serialization as cp_serialization
 from ortools_tpu_torch.sat.checker import solution_is_feasible
 from ortools_tpu_torch.sat.max_hs import minimize_max_hs
+from ortools_tpu_torch.sat.solver import solve_model
 from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
@@ -325,13 +377,14 @@ def environment() -> str:
     return smi.splitlines()[0]
 
 
-# The native cores: the simplex node backend's, MaxHS's CDCL solver, and
-# CP-SAT's lazy-clause-generation and pseudo-Boolean cores
-NATIVE = ("smalllp", "cdcl", "lcg", "pbsat")
+# The native cores: the simplex node backend's, MaxHS's CDCL solver,
+# CP-SAT's lazy-clause-generation and pseudo-Boolean cores, and the graph
+# algorithms' (max flow, min cost flow, assignment, Dijkstra)
+NATIVE = ("smalllp", "cdcl", "lcg", "pbsat", "graph")
 
 
 def build_native() -> threading.Thread:
-    """Build ``ortools_tpu_torch/_native/{smalllp,cdcl,lcg,pbsat}.cc`` with
+    """Build ``ortools_tpu_torch/_native/{smalllp,cdcl,lcg,pbsat,graph}.cc`` with
     g++ from the sources, on a thread beside the kernels' nvcc: any library
     left from an earlier build is removed first.  The thread's ``error`` is
     the build's exception, or None."""
@@ -3079,6 +3132,733 @@ def cp_sat() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 14. CP-SAT's portfolios and model I/O, the graph algorithms, routing
+# ---------------------------------------------------------------------------
+
+PORTFOLIO_WORKERS = 8
+# The limits keep the whole run under 1,000 s (the instances stay whole)
+PORTFOLIO_LIMIT = 20.0
+FORK_GUARD = 150.0  # wall-clock guard on each forked solve
+SHARED_TREE_KNAPSACK = dict(n=20, seed=5)
+DRAT_PIGEONS = 7  # into 6 holes
+MAX_FLOW = dict(nodes=100_000, arcs=1_000_000, seed=0)
+ASSIGNMENT = dict(n=1000, seed=0)
+TRANSPORT = dict(n=100, seed=0)
+TSP_POINTS = dict(n=200, seed=0)
+CVRP = dict(nodes=101, vehicles=12, capacity=100, seed=0)
+VRPTW = dict(customers=100, vehicles=25, capacity=200, horizon=230,
+             service=10, width=30, seed=0)
+ROUTING_LIMIT = 10.0
+CERT_TSP = dict(n=10, seed=3)
+
+
+def counted(label: str, fn, *args, **kwargs) -> tuple:
+    """``fn(*args, **kwargs)`` with the launch counters set to 0 just
+    before it and read just after (``_CallLog``): prints its seconds, its
+    peak device memory above what was held before it and its launches, and
+    names any kernel that it launched.  Returns (result, launches)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _CallLog() as log:
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    cnt = log.counts()
+    launched = sorted(k for k, v in cnt["launches"].items() if v)
+    print(f"  {label}: {dt:.3f} s; peak device memory +{peak} bytes; "
+          f"launches {cnt['launches']}"
+          + (f" (kernels launched: {launched})" if launched else ""),
+          flush=True)
+    return out, cnt["launches"]
+
+
+class _ForkWatch:
+    """For the length of a forked portfolio solve: counts the workers that
+    ``ParallelPortfolio`` forks, and after its shutdown (a 2 s join each,
+    then ``terminate``) how many exited on the stop message, how many ended
+    by an exception (a worker whose slice outlives the deadline raises
+    ``TimeoutError``, uncaught in ``_worker_main`` as in the JAX package),
+    how many had to be terminated and how many are still alive; a SIGALRM
+    after ``guard``
+    seconds raises in the solve, so a hung portfolio fails the phase (its
+    ``finally`` still shuts the workers down) instead of the run's limit."""
+
+    def __init__(self, label: str, guard: float = FORK_GUARD):
+        self.label, self.guard = label, guard
+        self.forked = self.exited = self.raised = 0
+        self.terminated = self.alive = 0
+
+    def __enter__(self):
+        self._shutdown = cp_parallel.ParallelPortfolio._shutdown
+        watch = self
+
+        def shutdown_(pf):
+            procs = list(pf._procs)
+            watch._shutdown(pf)
+            for p in procs:
+                watch.forked += 1
+                if p.is_alive():
+                    watch.alive += 1
+                elif p.exitcode == -signal.SIGTERM:
+                    watch.terminated += 1
+                elif p.exitcode == 0:
+                    watch.exited += 1
+                else:
+                    watch.raised += 1
+
+        def alarm(signum, frame):
+            raise SmokeFailure(f"{watch.label}: not done after "
+                               f"{watch.guard:.0f} s (a hung worker?)")
+
+        cp_parallel.ParallelPortfolio._shutdown = shutdown_
+        self._handler = signal.signal(signal.SIGALRM, alarm)
+        signal.setitimer(signal.ITIMER_REAL, self.guard)
+        return self
+
+    def __exit__(self, *exc):
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, self._handler)
+        cp_parallel.ParallelPortfolio._shutdown = self._shutdown
+
+    def report(self) -> None:
+        left = multiprocessing.active_children()
+        print(f"  {self.label}: {self.forked} tree workers forked (the "
+              f"LNS workers run in this process); "
+              f"{self.exited} exited on the stop message, {self.raised} "
+              f"ended by an exception, {self.terminated} had to be "
+              f"terminated, {self.alive} "
+              f"still alive; {len(left)} children left", flush=True)
+        require(self.forked > 0, f"{self.label}: no worker was forked")
+        require(self.alive == 0 and not left,
+                f"{self.label}: a forked worker outlived its shutdown")
+
+
+def ft10_portfolio(interleave: bool) -> dict:
+    """ft10 under ``num_workers=8`` and a 20 s limit: FEASIBLE or OPTIMAL,
+    930 <= makespan, bound <= 930, the schedule checked in numpy."""
+    jobs = parse_jssp(FT10.read_text())
+    model, starts, makespan = jobshop_cp(jobs)
+    kind = "interleaved" if interleave else "forked"
+    label = f"ft10, {PORTFOLIO_WORKERS} workers, {kind}"
+    params = dict(num_workers=PORTFOLIO_WORKERS,
+                  interleave_search=interleave,
+                  max_time_in_seconds=PORTFOLIO_LIMIT)
+    if interleave:
+        out = cp_solve(label, model, params)
+    else:
+        with _ForkWatch(label) as watch:
+            out = cp_solve(label, model, params)
+        watch.report()
+    require(out["status"] in ("FEASIBLE", "OPTIMAL"),
+            f"{label}: {out['status']}")
+    require(out["objective"] >= FT10_OPTIMUM >= out["bound"],
+            f"{label}: makespan {out['objective']}, bound {out['bound']}")
+    s = out["solver"]
+    check_schedule(jobs, np.array([s.values(row) for row in starts]),
+                   s.value(makespan))
+    print(f"{label}: makespan {out['objective']:.0f}, bound "
+          f"{out['bound']:.0f}, {out['seconds']:.1f} s; schedule checked",
+          flush=True)
+    return out
+
+
+def knapsack_cp(n: int, seed: int) -> tuple:
+    """tests/test_portfolio.py::knapsack_model, and milp's optimum."""
+    rng = np.random.default_rng(seed)
+    m = CpModel()
+    xs = [m.new_bool_var(f"x{i}") for i in range(n)]
+    w = rng.integers(1, 20, n)
+    v = rng.integers(1, 30, n)
+    cap = int(w.sum() * 0.4)
+    m.add(sum(int(wi) * x for wi, x in zip(w, xs)) <= cap)
+    m.maximize(sum(int(vi) * x for vi, x in zip(v, xs)))
+    res = milp(-v.astype(float), constraints=LinearConstraint(
+        w[None, :].astype(float), -np.inf, cap), bounds=Bounds(0, 1),
+        integrality=np.ones(n))
+    return m, round(-res.fun)
+
+
+def shared_tree() -> dict:
+    """The shared-tree portfolio (forked workers splitting one tree) on
+    tests/test_portfolio.py:223's kind of model, a 0/1 knapsack: OPTIMAL
+    at milp's optimum."""
+    model, ref = knapsack_cp(**SHARED_TREE_KNAPSACK)
+    label = (f"shared tree, knapsack n {SHARED_TREE_KNAPSACK['n']} (milp "
+             f"{ref}), 4 workers")
+    with _ForkWatch(label) as watch:
+        out = cp_solve(label, model, dict(
+            num_workers=4, interleave_search=False,
+            use_shared_tree_search=True, max_time_in_seconds=60.0))
+    watch.report()
+    require(out["status"] == "OPTIMAL" and out["objective"] == ref,
+            f"{label}: {out['status']} {out['objective']}")
+    return out
+
+
+def after_fork() -> dict:
+    """One matrix through the SpMV kernels against their plain versions,
+    after the forks: the parent's CUDA context still works."""
+    errs: dict = {}
+    qp = block_random_lp(**MODERATE, seed=1)
+    mat = BlockSparseMatrix.from_scipy(qp.constraint_matrix,
+                                       dtype=torch.float64, device="cuda")
+    check_matrix("after the forks: 2048^2 A (8x128)", mat, errs)
+    return errs
+
+
+def wcnf_text(clauses: list, w) -> str:
+    """A max-SAT model as classic WCNF: the clauses hard (weight top), a
+    soft unit clause (not x_i) of weight w_i for each variable."""
+    top = int(np.sum(w)) + 1
+    lines = [f"p wcnf {len(w)} {len(clauses) + len(w)} {top}"]
+    lines += [f"{top} " + " ".join(str(v + 1 if v >= 0 else v) for v in c)
+              + " 0" for c in clauses]
+    lines += [f"{int(wi)} -{i + 1} 0" for i, wi in enumerate(w)]
+    return "\n".join(lines) + "\n"
+
+
+def wcnf_cp(clauses: list, w) -> CpModel:
+    """The same max-SAT model built with ``CpModel`` as ``read_wcnf``
+    encodes it: variables x1..xn, the hard clauses, then for each soft
+    clause a relaxation literal ``_soft{k}`` beside it, minimized."""
+    m = CpModel()
+    xs = [m.new_bool_var(f"x{i + 1}") for i in range(len(w))]
+    for c in clauses:
+        m.add_bool_or([xs[v] if v >= 0 else ~xs[-v - 1] for v in c])
+    soft = []
+    for k in range(len(w)):
+        s = m.new_bool_var(f"_soft{k}")
+        m.add_bool_or([~xs[k], s])
+        soft.append(s)
+    m.minimize(sum(int(wi) * s for wi, s in zip(w, soft)))
+    return m
+
+
+def model_io(tmp: Path) -> tuple:
+    """Phase 13's max-SAT models written as WCNF and read back through
+    ``sat_io``: the IR equals the ``CpModel``'s, and solves to milp's
+    optimum; one model through ``model_to_json`` / ``model_from_json``: the
+    IR and the objective unchanged; the runner in a subprocess on a WCNF
+    file: its Objective is milp's optimum.  Returns (launches, the WCNF
+    path that the runner read)."""
+    total = {}
+    for seed in CP_MAXSAT_SEEDS:
+        _, clauses, w = maxsat_model(seed)
+        ref, _ = maxsat_milp(clauses, w)
+        path = tmp / f"maxsat_{seed}.wcnf"
+        path.write_text(wcnf_text(clauses, w))
+        read = cp_sat_io.read_problem_file(str(path))
+        require(read.name == str(path)
+                and dataclasses.replace(read, name="")
+                == wcnf_cp(clauses, w).ir,
+                f"max-SAT seed {seed}: the WCNF IR is not the CpModel's")
+        r, launches = counted(f"max-SAT seed {seed} read from WCNF",
+                              solve_model, read)
+        _add(total, launches)
+        print(f"max-SAT seed {seed} from WCNF: {r.status.name}, objective "
+              f"{r.objective_value}, milp {ref}", flush=True)
+        require(r.status.name == "OPTIMAL" and r.objective_value == ref,
+                f"max-SAT seed {seed} from WCNF: {r.status.name} "
+                f"{r.objective_value}, milp {ref}")
+    model, (ref, _) = cp_maxsat(CP_MAXSAT_SEEDS[0])
+    text = cp_serialization.model_to_json(model.ir)
+    back = cp_serialization.model_from_json(text)
+    require(back == model.ir and cp_serialization.model_to_json(back) == text,
+            "model_to_json / model_from_json does not round-trip")
+    r0, l0 = counted("JSON: the model", solve_model, model.ir)
+    r1, l1 = counted("JSON: the model read back", solve_model, back)
+    _add(total, l0)
+    _add(total, l1)
+    print(f"JSON round trip ({len(text)} characters): objective "
+          f"{r0.objective_value} and {r1.objective_value}, milp {ref}",
+          flush=True)
+    require(r0.status.name == r1.status.name == "OPTIMAL"
+            and r0.objective_value == r1.objective_value == ref,
+            "the JSON round trip changed the solve")
+    # the runner, as a user runs it, on the card by default
+    seed = CP_MAXSAT_SEEDS[-1]
+    _, clauses, w = maxsat_model(seed)
+    ref, _ = maxsat_milp(clauses, w)
+    path = tmp / f"maxsat_{seed}.wcnf"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ortools_tpu_torch.sat.runner", str(path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    print(f"runner on {path.name} ({dt:.1f} s, exit {proc.returncode}): "
+          + " | ".join(lines[:5]), flush=True)
+    objective = [ln.split(":", 1)[1].strip() for ln in lines
+                 if ln.startswith("Objective:")]
+    require(proc.returncode == 0 and objective
+            and float(objective[0]) == ref,
+            f"the runner: exit {proc.returncode}, {objective}, milp {ref}; "
+            f"{proc.stderr[-2000:]}")
+    return total
+
+
+def pigeonhole(pigeons: int) -> list:
+    """PHP(pigeons, pigeons - 1) as clauses of signed DIMACS literals."""
+    holes = pigeons - 1
+
+    def var(p, h):
+        return p * holes + h + 1
+
+    clauses = [[var(p, h) for h in range(holes)] for p in range(pigeons)]
+    for h in range(holes):
+        for p1 in range(pigeons):
+            for p2 in range(p1 + 1, pigeons):
+                clauses.append([-var(p1, h), -var(p2, h)])
+    return clauses
+
+
+def drat_proof(tmp: Path) -> None:
+    """An UNSAT pure-SAT model (the pigeonhole principle) on the CDCL core
+    with a proof, written by ``write_drat``, read by ``parse_drat`` and
+    checked by ``check_drat``; a proof cut before its empty clause fails."""
+    clauses = pigeonhole(DRAT_PIGEONS)
+    n = DRAT_PIGEONS * (DRAT_PIGEONS - 1)
+    s = cp_cdcl.CdclSolver(num_vars=n, proof=True)
+    for c in clauses:
+        s.add_clause(c)
+    t0 = time.perf_counter()
+    st = s.solve()
+    solve_s = time.perf_counter() - t0
+    path = tmp / "php.drat"
+    s.write_drat(str(path))
+    proof = cp_drat.parse_drat(str(path))
+    t0 = time.perf_counter()
+    ok = cp_drat.check_drat(clauses, proof)
+    check_s = time.perf_counter() - t0
+    cut = cp_drat.check_drat(clauses, [e for e in proof if e[1]])
+    print(f"DRAT: PHP({DRAT_PIGEONS}, {DRAT_PIGEONS - 1}) status {st} in "
+          f"{solve_s:.3f} s; {len(proof)} proof lines "
+          f"({path.stat().st_size} bytes) checked {ok} in {check_s:.3f} s; "
+          f"without its empty clause {cut}", flush=True)
+    require(st == 0 and proof and ok and not cut,
+            f"DRAT: status {st}, checked {ok}, cut proof {cut}")
+
+
+def portfolios_and_io() -> dict:
+    """Phase 14 (a): the portfolios, then the model I/O, the runner and
+    DRAT.  Returns the launches."""
+    total = {}
+    outs = [ft10_portfolio(True), ft10_portfolio(False), shared_tree()]
+    for out in outs:
+        _add(total, out["launches"])
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _add(total, model_io(Path(tmp)))
+        drat_proof(Path(tmp))
+    return total
+
+
+def random_arcs(nodes: int, arcs: int, seed: int) -> tuple:
+    """``arcs`` distinct random arcs without self-loops, capacities in
+    [1, 100]."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, nodes, int(arcs * 1.05))
+    h = rng.integers(0, nodes, t.size)
+    keep = t != h
+    key = t[keep].astype(np.int64) * nodes + h[keep]
+    _, first = np.unique(key, return_index=True)
+    first = np.sort(first)[:arcs]
+    t, h = t[keep][first], h[keep][first]
+    return t, h, rng.integers(1, 101, t.size)
+
+
+def max_flow_and_paths() -> dict:
+    """``SimpleMaxFlow`` and ``dijkstra_shortest_path`` on 100,000 nodes
+    and 10^6 arcs against scipy."""
+    total = {}
+    t, h, cap = random_arcs(**MAX_FLOW)
+    n = MAX_FLOW["nodes"]
+    require(t.size == MAX_FLOW["arcs"], f"{t.size} arcs")
+    mf = SimpleMaxFlow()
+    t0 = time.perf_counter()
+    for a, b, c in zip(t.tolist(), h.tolist(), cap.tolist()):
+        mf.add_arc_with_capacity(a, b, c)
+    add_s = time.perf_counter() - t0
+    st, launches = counted("SimpleMaxFlow.solve", mf.solve, 0, n - 1)
+    _add(total, launches)
+    g = sp.csr_matrix((cap.astype(np.int32), (t, h)), shape=(n, n))
+    t0 = time.perf_counter()
+    ref = maximum_flow(g, 0, n - 1).flow_value
+    ref_s = time.perf_counter() - t0
+    flows = np.array([mf.flow(k) for k in range(mf.num_arcs)])
+    net = np.bincount(t, flows, n) - np.bincount(h, flows, n)
+    print(f"max flow, {n} nodes, {t.size} arcs: {st.name} "
+          f"{mf.optimal_flow()}, scipy {ref} ({ref_s:.3f} s); adding the "
+          f"arcs {add_s:.2f} s", flush=True)
+    require(st.name == "OPTIMAL" and mf.optimal_flow() == ref,
+            f"max flow {st.name} {mf.optimal_flow()}, scipy {ref}")
+    require(bool((flows >= 0).all() and (flows <= cap).all())
+            and net[0] == ref and net[n - 1] == -ref
+            and not net[1:n - 1].any(), "max flow: the flows do not hold")
+    lengths = cap.astype(np.float64)
+    (dist, _, path), launches = counted(
+        "dijkstra_shortest_path", dijkstra_shortest_path, n, t.tolist(),
+        h.tolist(), lengths.tolist(), 0, n - 1)
+    _add(total, launches)
+    ref = scipy_dijkstra(sp.csr_matrix((lengths, (t, h)), shape=(n, n)),
+                         indices=0)
+    same = np.array_equal(np.isinf(dist), np.isinf(ref))
+    err = float(np.abs(dist[np.isfinite(ref)] - ref[np.isfinite(ref)]).max())
+    print(f"dijkstra: {int(np.isfinite(dist).sum())} nodes reached, max "
+          f"|d - scipy| {err:.3e}, path of {len(path or [])} nodes",
+          flush=True)
+    require(same and err <= 1e-9 * max(1.0, float(ref[np.isfinite(ref)]
+                                                  .max())),
+            f"dijkstra disagrees with scipy: {err}")
+    if path is not None:
+        arc_len = {}
+        for a, b, d in zip(t.tolist(), h.tolist(), lengths.tolist()):
+            arc_len[a, b] = d
+        require(abs(sum(arc_len[a, b] for a, b in zip(path, path[1:]))
+                    - dist[n - 1]) <= 1e-6, "dijkstra: the path's length")
+    return total
+
+
+def assignment_and_transport() -> dict:
+    """``LinearSumAssignment`` at 1,000 x 1,000 against scipy's
+    ``linear_sum_assignment``, and ``SimpleMinCostFlow`` on a 100 x 100
+    transportation problem against HiGHS."""
+    total = {}
+    n = ASSIGNMENT["n"]
+    cost = np.random.default_rng(ASSIGNMENT["seed"]).integers(0, 1000,
+                                                              (n, n))
+    lsa = LinearSumAssignment()
+    t0 = time.perf_counter()
+    for i, row in enumerate(cost.tolist()):
+        for k, c in enumerate(row):
+            lsa.add_arc_with_cost(i, k, c)
+    add_s = time.perf_counter() - t0
+    st, launches = counted("LinearSumAssignment.solve", lsa.solve)
+    _add(total, launches)
+    r, c = linear_sum_assignment(cost)
+    ref = int(cost[r, c].sum())
+    mates = np.array([lsa.right_mate(i) for i in range(n)])
+    print(f"assignment {n} x {n}: {st.name} {lsa.optimal_cost()}, scipy "
+          f"{ref}; adding the arcs {add_s:.2f} s", flush=True)
+    require(st.name == "OPTIMAL" and lsa.optimal_cost() == ref
+            and sorted(mates.tolist()) == list(range(n))
+            and int(cost[np.arange(n), mates].sum()) == ref,
+            f"assignment {st.name} {lsa.optimal_cost()}, scipy {ref}")
+    k = TRANSPORT["n"]
+    rng = np.random.default_rng(TRANSPORT["seed"])
+    supply = rng.integers(10, 100, k)
+    demand = rng.multinomial(int(supply.sum()), np.full(k, 1.0 / k))
+    unit = rng.integers(1, 100, (k, k))
+    mcf = SimpleMinCostFlow()
+    for i in range(k):
+        for j in range(k):
+            mcf.add_arc_with_capacity_and_unit_cost(i, k + j,
+                                                    int(supply[i]),
+                                                    int(unit[i, j]))
+    for i in range(k):
+        mcf.set_node_supply(i, int(supply[i]))
+        mcf.set_node_supply(k + i, -int(demand[i]))
+    st, launches = counted("SimpleMinCostFlow.solve", mcf.solve)
+    _add(total, launches)
+    a_eq = sp.vstack([sp.kron(sp.eye(k), np.ones((1, k))),
+                      sp.kron(np.ones((1, k)), sp.eye(k))]).tocsr()
+    res = linprog(unit.ravel().astype(float), A_eq=a_eq,
+                  b_eq=np.r_[supply, demand].astype(float), bounds=(0, None),
+                  method="highs")
+    flows = np.array([mcf.flow(a) for a in range(mcf.num_arcs)]).reshape(k,
+                                                                        k)
+    print(f"min cost flow {k} x {k}: {st.name} {mcf.optimal_cost()}, HiGHS "
+          f"{res.fun:.1f}", flush=True)
+    require(st.name == "OPTIMAL" and mcf.optimal_cost() == round(res.fun)
+            and (flows.sum(1) == supply).all()
+            and (flows.sum(0) == demand).all()
+            and int((flows * unit).sum()) == mcf.optimal_cost(),
+            f"min cost flow {st.name} {mcf.optimal_cost()}, HiGHS {res.fun}")
+    return total
+
+
+def tour_cost(dist: np.ndarray, tour: list) -> float:
+    return float(sum(dist[a, b] for a, b in zip(tour, tour[1:] + tour[:1])))
+
+
+def christofides_200() -> dict:
+    """``christofides_tsp`` (the card's default device) on 200 seeded
+    points: a tour of every point, costing at most 1.5 x the 1-tree
+    bound."""
+    rng = np.random.default_rng(TSP_POINTS["seed"])
+    pts = rng.uniform(0, 1000, (TSP_POINTS["n"], 2))
+    d = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1)
+    (cost, tour), launches = counted("christofides_tsp", christofides_tsp, d)
+    t0 = time.perf_counter()
+    lb = one_tree_lower_bound(d)
+    lb_s = time.perf_counter() - t0
+    print(f"christofides, {len(d)} points: {cost:.1f}, 1-tree bound "
+          f"{lb:.1f} ({lb_s:.2f} s), ratio {cost / lb:.4f}", flush=True)
+    require(sorted(tour) == list(range(len(d)))
+            and abs(tour_cost(d, tour) - cost) <= 1e-6 * cost
+            and lb > 0 and cost <= 1.5 * lb,
+            f"christofides: {cost} against the bound {lb}")
+    return launches
+
+
+def graph_algorithms() -> dict:
+    """Phase 14 (b).  Returns the launches."""
+    total = max_flow_and_paths()
+    _add(total, assignment_and_transport())
+    _add(total, christofides_200())
+    return total
+
+
+def cvrp_instance() -> tuple:
+    """CVRP on 101 nodes: uniform points in [0, 1000]^2 (node 0 the
+    depot), demands in [1, 19], 12 vehicles of capacity 100."""
+    rng = np.random.default_rng(CVRP["seed"])
+    n = CVRP["nodes"]
+    pts = rng.uniform(0, 1000, (n, 2))
+    d = np.round(np.linalg.norm(pts[:, None] - pts[None, :], axis=-1)
+                 ).astype(np.int64)
+    demand = rng.integers(1, 20, n)
+    demand[0] = 0
+    return d, demand
+
+
+def solomon_text() -> str:
+    """A Solomon R1-shaped instance as Solomon text: 100 customers uniform
+    in [0, 70]^2 around a central depot, demands in [1, 41], service time
+    10, a time window of 30 a customer, placed so that the depot reaches it
+    and returns by 230; 25 vehicles of capacity 200."""
+    c = VRPTW
+    rng = np.random.default_rng(c["seed"])
+    n = c["customers"] + 1
+    xy = np.round(rng.uniform(0, 70, (n, 2)))
+    xy[0] = (35, 35)
+    demand = rng.integers(1, 42, n)
+    demand[0] = 0
+    d0 = np.sqrt(((xy - xy[0]) ** 2).sum(-1))
+    latest = c["horizon"] - np.ceil(d0) - c["service"] - c["width"]
+    ready = np.floor(rng.uniform(np.ceil(d0), latest))
+    due = ready + c["width"]
+    ready[0], due[0] = 0, c["horizon"]
+    rows = [f"{i:5d} {xy[i, 0]:10.0f} {xy[i, 1]:10.0f} {demand[i]:10d} "
+            f"{ready[i]:10.0f} {due[i]:10.0f} "
+            f"{0 if i == 0 else c['service']:10d}" for i in range(n)]
+    return "\n".join([
+        "R1_SEEDED", "", "VEHICLE", "NUMBER     CAPACITY",
+        f"  {c['vehicles']}         {c['capacity']}", "", "CUSTOMER",
+        "CUST NO.  XCOORD.   YCOORD.   DEMAND    READY TIME  DUE DATE   "
+        "SERVICE TIME", ""] + rows) + "\n"
+
+
+def _params(limit: float, gls: bool = True):
+    p = default_routing_search_parameters()
+    p.time_limit_seconds = limit
+    if gls:
+        p.local_search_metaheuristic = \
+            LocalSearchMetaheuristic.GUIDED_LOCAL_SEARCH
+    return p
+
+
+def check_routes(label: str, mgr, routes: list, demand, capacity: int,
+                 windows=None) -> None:
+    """Every customer visited once, each route's load within capacity,
+    and with ``windows`` = (travel, ready, due, service), each arrival
+    (waiting allowed) within its window and the return by the depot's."""
+    n = len(demand)
+    seen = []
+    for r in routes:
+        nodes = [mgr.index_to_node(i) for i in r]
+        require(nodes[0] == 0 and nodes[-1] == 0,
+                f"{label}: a route leaves or ends away from the depot")
+        seen += nodes[1:-1]
+        require(int(np.asarray(demand)[nodes].sum()) <= capacity,
+                f"{label}: a route over capacity")
+        if windows is not None:
+            travel, ready, due, service = windows
+            t = 0.0
+            for a, b in zip(nodes, nodes[1:]):
+                t = max(float(ready[b]), t + service[a] + travel[a, b])
+                require(t <= due[b], f"{label}: node {b} reached at {t}, "
+                        f"after its window closes at {due[b]}")
+    require(sorted(seen) == list(range(1, n)),
+            f"{label}: customers not visited exactly once")
+
+
+def routing_solve(label: str, build, limit: float) -> tuple:
+    """The first solution (a solve whose limit has passed before the local
+    search starts) and the GLS solve under ``limit``, each on its own
+    model from ``build()``; prints both objectives."""
+    model, mgr = build()
+    first = model.solve_with_parameters(_params(0.0, gls=False))
+    model, mgr = build()
+    sol, launches = counted(f"{label}, GLS, {limit:.0f} s",
+                            model.solve_with_parameters, _params(limit))
+    require(first is not None and sol is not None, f"{label}: no solution")
+    used = sum(len(r) > 2 for r in sol.routes())
+    print(f"{label}: objective {sol.objective_value()}, first solution "
+          f"{first.objective_value()}, {used} vehicles used", flush=True)
+    require(sol.objective_value() <= first.objective_value(),
+            f"{label}: worse than its first solution")
+    return sol, mgr, launches
+
+
+def cvrp_101() -> dict:
+    d, demand = cvrp_instance()
+
+    def build():
+        mgr = RoutingIndexManager(CVRP["nodes"], CVRP["vehicles"], 0)
+        model = RoutingModel(mgr)
+        cb = model.register_transit_callback(
+            lambda f, t: int(d[mgr.index_to_node(f), mgr.index_to_node(t)]))
+        model.set_arc_cost_evaluator_of_all_vehicles(cb)
+        dem = model.register_unary_transit_callback(
+            lambda f: int(demand[mgr.index_to_node(f)]))
+        model.add_dimension_with_vehicle_capacity(
+            dem, 0, [CVRP["capacity"]] * CVRP["vehicles"], True, "load")
+        return model, mgr
+
+    sol, mgr, launches = routing_solve(
+        f"CVRP {CVRP['nodes']} nodes, {CVRP['vehicles']} vehicles",
+        build, ROUTING_LIMIT)
+    check_routes("CVRP", mgr, sol.routes(), demand, CVRP["capacity"])
+    return launches
+
+
+def vrptw_101(tmp: Path) -> dict:
+    path = tmp / "r1_seeded.txt"
+    path.write_text(solomon_text())
+    inst = parse_solomon(str(path))
+    require(len(inst.demands) == VRPTW["customers"] + 1
+            and inst.num_vehicles == VRPTW["vehicles"],
+            "parse_solomon: the instance read back differs")
+    travel = inst.distance_matrix(10)  # tenths, integral for the callbacks
+    service = (inst.service_times * 10).astype(np.int64)
+    ready = (inst.ready_times * 10).astype(np.int64)
+    due = (inst.due_times * 10).astype(np.int64)
+    n, nv = len(inst.demands), inst.num_vehicles
+
+    def build():
+        mgr = RoutingIndexManager(n, nv, 0)
+        model = RoutingModel(mgr)
+        node = mgr.index_to_node
+        cb = model.register_transit_callback(
+            lambda f, t: int(travel[node(f), node(t)]))
+        model.set_arc_cost_evaluator_of_all_vehicles(cb)
+        tcb = model.register_transit_callback(
+            lambda f, t: int(service[node(f)] + travel[node(f), node(t)]))
+        horizon = int(due[0])
+        model.add_dimension(tcb, horizon, horizon, False, "Time")
+        dim = model.get_dimension_or_die("Time")
+        for i in range(1, n):
+            dim.set_cumul_var_range(mgr.node_to_index(i), int(ready[i]),
+                                    int(due[i]))
+        for v in range(nv):
+            dim.set_cumul_var_range(model.end(v), 0, horizon)
+        dem = model.register_unary_transit_callback(
+            lambda f: int(inst.demands[node(f)]))
+        model.add_dimension_with_vehicle_capacity(
+            dem, 0, [int(inst.capacity)] * nv, True, "load")
+        return model, mgr
+
+    sol, mgr, launches = routing_solve(
+        f"VRPTW (Solomon R1 shape) {n} nodes, {nv} vehicles", build,
+        ROUTING_LIMIT)
+    check_routes("VRPTW", mgr, sol.routes(), inst.demands,
+                 int(inst.capacity), (travel, ready, due, service))
+    return launches
+
+
+def certified_tsp() -> dict:
+    """``cp_sat_certification_share=0.5`` on a 10-node single-vehicle TSP
+    (sat_path.py's false OPTIMAL certificates come with more than one
+    vehicle), and ``solve_with_cp_sat`` on it, whose ``CpSolver`` takes the
+    model's device: both at the brute-force optimum."""
+    total = {}
+    rng = np.random.default_rng(CERT_TSP["seed"])
+    n = CERT_TSP["n"]
+    pts = rng.integers(0, 100, (n, 2))
+    d = np.abs(pts[:, None] - pts[None, :]).sum(-1)
+    perms = np.array(list(itertools.permutations(range(1, n))))
+    tours = np.hstack([np.zeros((len(perms), 1), int), perms,
+                       np.zeros((len(perms), 1), int)])
+    best = int(d[tours[:, :-1], tours[:, 1:]].sum(1).min())
+
+    def build():
+        mgr = RoutingIndexManager(n, 1, 0)
+        model = RoutingModel(mgr)
+        model.set_arc_cost_evaluator_of_all_vehicles(
+            model.register_transit_callback(
+                lambda f, t: int(d[mgr.index_to_node(f),
+                                   mgr.index_to_node(t)])))
+        return model
+
+    model = build()
+    p = _params(10.0, gls=False)
+    p.cp_sat_certification_share = 0.5
+    sol, launches = counted("certification share 0.5",
+                            model.solve_with_parameters, p)
+    _add(total, launches)
+    model2 = build()
+    out, launches = counted("solve_with_cp_sat", sat_path.solve_with_cp_sat,
+                            model2, 30.0)
+    _add(total, launches)
+    print(f"TSP {n} nodes: certified {sol.objective_value()}, "
+          f"solve_with_cp_sat {out and out[0].objective_value()} (proven "
+          f"{out and out[1]}) on {model2.device}, brute force {best}",
+          flush=True)
+    require(sol.objective_value() == best and out is not None
+            and out[0].objective_value() == best and out[1],
+            f"certified TSP: {sol.objective_value()}, {out}, brute {best}")
+    return total
+
+
+def breaks_case() -> dict:
+    """tests/test_routing.py:318: a break of 3 in [4, 9] on a route of
+    four arcs of 4."""
+    mgr = RoutingIndexManager(4, 1, 0)
+    model = RoutingModel(mgr)
+    cb = model.register_transit_callback(lambda a, b: 4)
+    model.add_dimension(cb, 100, 100, True, "Time")
+    dim = model.get_dimension_or_die("Time")
+    dim.set_break_intervals_of_vehicle([BreakInterval(duration=3, start_min=4, start_max=9)], 0)
+    out, launches = counted("schedule_route_with_breaks",
+                            schedule_route_with_breaks, model, [1, 2, 3],
+                            "Time", dim.breaks_per_vehicle[0])
+    print(f"breaks: {out}", flush=True)
+    seq = [model.start(0), 1, 2, 3, model.end(0)]
+    st, p = out["break_starts"][0], out["break_arcs"][0]
+    c = out["cumuls"]
+    require(c[model.end(0)] >= 19 and 4 <= st <= 9
+            and c[seq[p]] <= st and st + 3 <= c[seq[p + 1]],
+            f"breaks: {out}")
+    return launches
+
+
+def routing() -> dict:
+    """Phase 14 (c).  Returns the launches."""
+    total = cvrp_101()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _add(total, vrptw_101(Path(tmp)))
+    _add(total, certified_tsp())
+    _add(total, breaks_case())
+    return total
+
+
+def slice12() -> tuple:
+    """Phase 14.  Returns (launches, the after-fork kernel errors)."""
+    t0 = time.perf_counter()
+    launches = portfolios_and_io()
+    errs = after_fork()
+    _add(launches, graph_algorithms())
+    _add(launches, routing())
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches} (none expected: this slice is host code)",
+          flush=True)
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3177,6 +3957,12 @@ def main() -> int:
           "LP, 8-queens enumerated")
     cp_launches = cp_sat()
 
+    phase("14. CP-SAT's portfolios (ft10 interleaved and forked, the shared "
+          "tree), model I/O, the runner, DRAT; the graph algorithms at full "
+          "size; routing (CVRP and VRPTW on 101 nodes, certification, "
+          "breaks)")
+    slice12_launches, fork_errs = slice12()
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -3193,7 +3979,9 @@ def main() -> int:
             mesh_path_launches=mesh_launches[name],
             mesh_shard_max_abs_err=shard_errs[name],
             host_front_ends_launches=host_launches[name],
-            cp_sat_launches=cp_launches[name], ok=True))
+            cp_sat_launches=cp_launches[name],
+            slice12_launches=slice12_launches[name],
+            after_fork_max_abs_err=fork_errs[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -3207,7 +3995,8 @@ def main() -> int:
         frontend_launches=front_launches[SPMM["name"]],
         mesh_path_launches=mesh_launches[SPMM["name"]],
         host_front_ends_launches=host_launches[SPMM["name"]],
-        cp_sat_launches=cp_launches[SPMM["name"]], ok=True))
+        cp_sat_launches=cp_launches[SPMM["name"]],
+        slice12_launches=slice12_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

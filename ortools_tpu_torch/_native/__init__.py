@@ -1,0 +1,1 @@
+from ortools_tpu_torch._native.build import load_library  # noqa: F401

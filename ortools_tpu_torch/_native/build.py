@@ -1,5 +1,6 @@
-"""Build and load the port's native C++ core (``smalllp.cc``, the port's
-copy of ``ortools_tpu/_native/smalllp.cc``).
+"""Build and load the port's native C++ cores (``smalllp.cc``,
+``cdcl.cc``, ``lcg.cc``, ``pbsat.cc`` and ``graph.cc``, byte copies of
+the JAX package's ``_native`` sources).
 
 The source is compiled on demand with g++ (``-O2 -std=c++17 -shared
 -fPIC``) into a shared library consumed through ctypes, by the kernels'

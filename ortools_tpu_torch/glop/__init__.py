@@ -1,0 +1,1 @@
+from ortools_tpu_torch.glop.simplex import SimplexResult, solve  # noqa: F401

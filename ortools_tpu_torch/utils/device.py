@@ -3,6 +3,8 @@ asks for the CPU, and never the CPU in its place."""
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -14,6 +16,16 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def resolve_device_or_exit(device, prog: str) -> torch.device:
+    """``resolve_device`` for a command line: where it raises, print its
+    message to stderr and exit with code 2."""
+    try:
+        return resolve_device(device)
+    except RuntimeError as e:
+        print(f"{prog}: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
 
 
 def lp_dtype(device: torch.device) -> torch.dtype:

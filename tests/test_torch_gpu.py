@@ -718,3 +718,40 @@ def test_cp_sat_max_hs_on_card_equals_the_cpu_solve(cuda):
     for r in out.values():
         assert r.objective_value == r.best_objective_bound == best
         assert solution_is_feasible(model.ir, r.solution)
+
+
+@pytest.mark.gpu
+def test_forked_portfolio_beside_a_cuda_context(cuda):
+    """A CUDA op, then a forked ``ParallelPortfolio`` solve (the workers
+    are forked from a process that holds a CUDA context and never touch
+    it), then a CUDA op again: the objective equals the CPU solve's, every
+    worker is joined, and the card still computes."""
+    import multiprocessing as mp
+
+    from ortools_tpu_torch.sat import CpModel, CpSolver
+
+    x = torch.arange(1 << 16, device=cuda, dtype=torch.float32)
+    assert float((x * 2).sum()) == float((x.cpu() * 2).sum())
+
+    def knapsack():
+        rng = np.random.default_rng(5)
+        m = CpModel()
+        xs = [m.new_bool_var(f"x{i}") for i in range(14)]
+        w = rng.integers(1, 20, 14)
+        v = rng.integers(1, 30, 14)
+        m.add(sum(int(a) * b for a, b in zip(w, xs)) <= int(w.sum() * 0.4))
+        m.maximize(sum(int(a) * b for a, b in zip(v, xs)))
+        return m
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        solver = CpSolver(device=device)
+        solver.parameters.num_workers = 4
+        solver.parameters.interleave_search = False
+        solver.parameters.max_time_in_seconds = 60.0
+        assert solver.solve(knapsack()).name == "OPTIMAL"
+        out[device] = solver.objective_value
+    assert out["cuda"] == out["cpu"]
+    assert not mp.active_children()
+    y = torch.ones(1 << 20, device=cuda, dtype=torch.float64)
+    assert float(y.sum()) == float(1 << 20)

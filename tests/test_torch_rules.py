@@ -29,7 +29,11 @@ from ortools_tpu_torch.sat import CpModel, CpSolver, cdcl, lcg, pb_solver
 from ortools_tpu_torch.sat import model_ir as ir
 from ortools_tpu_torch.sat.fj_device import device_feasibility_jump
 from ortools_tpu_torch.sat.max_hs import minimize_max_hs
+from ortools_tpu_torch.sat import runner
 from ortools_tpu_torch.sat.solver import solve_model
+from ortools_tpu_torch.graph.tsp_paths import christofides_tsp
+from ortools_tpu_torch.routing import RoutingIndexManager, RoutingModel
+from ortools_tpu_torch.routing.breaks import schedule_route_with_breaks
 
 # The tensors are small: one thread each keeps the parallel test run's
 # workers off each other's cores.
@@ -137,11 +141,30 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
         solve_model(cp.ir)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_model(maxsat)
+    # routing and the graph algorithms that reach CP-SAT or mip.solve
+    mgr = RoutingIndexManager(4, 1, 0)
+    routing = RoutingModel(mgr)
+    routing.set_arc_cost_evaluator_of_all_vehicles(
+        routing.register_transit_callback(lambda a, b: abs(a - b)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        routing.solve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        schedule_route_with_breaks(routing, [1, 2, 3], "T", [])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        christofides_tsp(np.ones((4, 4)) - np.eye(4))
     # the CLI without --device: a non-zero exit with the same message, and
     # nothing solved
     path = tmp_path / "m.mps"
     path.write_text(model.export_to_mps_string())
     assert cli.main(["solve", "--input", str(path)]) != 0
+    out = capsys.readouterr()
+    assert "device='cpu'" in out.err and "Status" not in out.out
+    # the CP-SAT runner without --device: exit code 2, nothing solved
+    wcnf = tmp_path / "m.wcnf"
+    wcnf.write_text("p wcnf 1 1 10\n3 1 0\n")
+    with pytest.raises(SystemExit) as exc:
+        runner.main([str(wcnf)])
+    assert exc.value.code == 2
     out = capsys.readouterr()
     assert "device='cpu'" in out.err and "Status" not in out.out
 
@@ -167,22 +190,26 @@ def test_cp_sat_native_cores_build_outside_the_source_tree(name, load):
     assert not list(src_dir.glob("*.so"))
 
 
-def test_cp_sat_portfolio_is_not_ported_yet():
+def test_cp_sat_portfolio_solves_as_jax_does():
     """num_workers > 1 reaches the portfolio (sat/solver.py's
-    _solve_portfolio), whose modules come in a later slice: the lazy import
-    fails by name, and nothing else is reached."""
-    m = CpModel()
-    x = m.new_int_var(0, 10, "x")
-    y = m.new_int_var(0, 10, "y")
-    m.add(x + 2 * y <= 14)
-    m.maximize(3 * x + 4 * y)
-    s = CpSolver(device="cpu")
-    s.parameters.num_workers = 2
-    with pytest.raises(ModuleNotFoundError,
-                       match="ortools_tpu_torch.sat.portfolio"):
-        s.solve(m)
-    s.parameters.num_workers = 1
-    assert s.solve(m).name == "OPTIMAL" and s.objective_value == 38
+    _solve_portfolio): interleaved and forked, the port's answer is the
+    JAX package's on the same model, and the single worker's."""
+    from ortools_tpu.sat import CpModel as JCpModel, CpSolver as JCpSolver
+
+    out = []
+    for model_cls, solver in ((JCpModel, JCpSolver()),
+                              (CpModel, CpSolver(device="cpu"))):
+        m = model_cls()
+        x = m.new_int_var(0, 10, "x")
+        y = m.new_int_var(0, 10, "y")
+        m.add(x + 2 * y <= 14)
+        m.maximize(3 * x + 4 * y)
+        for workers, interleave in ((2, True), (2, False), (1, True)):
+            solver.parameters.num_workers = workers
+            solver.parameters.interleave_search = interleave
+            out.append((solver.solve(m).name, solver.objective_value))
+    assert out[:3] == out[3:]
+    assert set(out) == {("OPTIMAL", 38)}
 
 
 def test_port_file_list_covers_the_cp_sat_modules():
@@ -191,7 +218,15 @@ def test_port_file_list_covers_the_cp_sat_modules():
     for rel in ("sat/cp_model.py", "sat/solver.py", "sat/engine.py",
                 "sat/presolve.py", "sat/lcg.py", "sat/pb_solver.py",
                 "sat/lp_propagator.py", "algorithms/symmetry.py",
-                "utils/logging_util.py"):
+                "utils/logging_util.py", "sat/portfolio.py",
+                "sat/parallel_portfolio.py", "sat/runner.py",
+                "sat/sat_io.py", "sat/serialization.py", "sat/drat.py",
+                "graph/max_flow.py", "graph/min_cost_flow.py",
+                "graph/shortest_paths.py", "graph/assignment.py",
+                "graph/components.py", "graph/tsp_paths.py",
+                "routing/model.py", "routing/sat_path.py",
+                "routing/breaks.py", "routing/lp_scheduling.py",
+                "routing/parsers.py", "routing/index_manager.py"):
         assert rel in names, rel
 
 
