@@ -181,10 +181,32 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    tests/test_routing.py:318's case.  Each solve prints its seconds, its
    peak device memory and its launches, the counters set to 0 just
    before it and read just after.
+15. The last modules (run before phase 8's lines): the bench LP written
+   with ``write_lp`` and read back with ``read_lp``, every field equal
+   (its empty rows come back as explicit zeros, counted and dropped for
+   the comparison), and ``pdlp.solve`` of the QP as read bit for bit the
+   generated QP's at phase 5's parameters, with both SpMVs launched and
+   held against their plain versions on the read A and A^T; phase 4's
+   four moderate LPs stacked block-diagonally, split by ``decompose`` into
+   four blocks, each solved on the card to OPTIMAL, their objectives
+   summed within 1e-4 of phase 4's HiGHS optima summed and the assembled
+   x held to the stack's rows and bounds (the rows without entries that
+   ``decompose`` drops, each with 0 in its bounds, counted); ft10 through
+   ``solve_jobshop`` on its default LCG route (60 s limit) OPTIMAL at 930,
+   ft06 through ``solve_jobshop_cdcl`` and ``engine="cp"`` at 55 and
+   tests/test_scheduling_packing.py's RCPSP at 9, each schedule checked;
+   phase 14's knapsack written as FlatZinc through ``solve_fzn_text`` and
+   ``python -m ortools_tpu_torch.flatzinc --device cuda`` at milp's
+   optimum; 8-queens through ``pywrapcp.Solver`` with an all-solutions
+   collector (92) and a ``Minimize`` at milp's optimum; the nine
+   ``examples_torch/`` scripts, each ``main(device="cuda")``
+   (``pdlp_large_lp`` launching the SpMV, ``maxsat_wcnf``'s MaxHS given
+   the card).  Each prints its seconds, peak device memory and launches,
+   the counters set to 0 just before it and read just after.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
    path, on the front end, on the mesh path, on the host front ends, on
-   CP-SAT and on phase 14, the SpMVs' errors after the forks, and the
-   fast SpMV's bf16 CSR yardstick), the total time,
+   CP-SAT, on phase 14 and on phase 15, the SpMVs' errors after the forks,
+   and the fast SpMV's bf16 CSR yardstick), the total time,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
 """
@@ -192,6 +214,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import itertools
 import json
 import math
@@ -225,6 +248,8 @@ from ortools_tpu_torch.algorithms.knapsack import (dp_knapsack_table,
 from ortools_tpu_torch.algorithms.set_cover import solve_set_cover_mip
 from ortools_tpu_torch.bop import IntegralSolver
 from ortools_tpu_torch.bop.portfolio import solve_boolean_lp
+from ortools_tpu_torch.constraint_solver import pywrapcp
+from ortools_tpu_torch.flatzinc import solve_fzn_text
 from ortools_tpu_torch.graph import (LinearSumAssignment, SimpleMaxFlow,
                                      SimpleMinCostFlow, dijkstra_shortest_path)
 from ortools_tpu_torch.graph.tsp_paths import (christofides_tsp,
@@ -236,6 +261,8 @@ from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
 from ortools_tpu_torch.models.generators import block_random_lp
 from ortools_tpu_torch.models.mip_generators import miplib_like_battery
 from ortools_tpu_torch.models.lp import QuadraticProgram
+from ortools_tpu_torch.models.lp_decomposer import decompose
+from ortools_tpu_torch.models.lp_format import read_lp, write_lp
 from ortools_tpu_torch.models.mps import write_mps
 from ortools_tpu_torch.ops import _build, tiled_spmv
 from ortools_tpu_torch.ops.block_sparse import BlockSparseMatrix
@@ -275,6 +302,9 @@ from ortools_tpu_torch.sat import serialization as cp_serialization
 from ortools_tpu_torch.sat.checker import solution_is_feasible
 from ortools_tpu_torch.sat.max_hs import minimize_max_hs
 from ortools_tpu_torch.sat.solver import solve_model
+from ortools_tpu_torch.scheduling import (parse_jobshop, solve_jobshop,
+                                          solve_jobshop_cdcl)
+from ortools_tpu_torch.scheduling.rcpsp import parse_rcpsp, solve_rcpsp
 from ortools_tpu_torch.utils.status import TerminationReason
 
 ROOT = Path(__file__).resolve().parent
@@ -3859,6 +3889,415 @@ def slice12() -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# 15. The last modules: LP files, the decomposer, scheduling, FlatZinc, the
+#     classic CP facade and the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples_torch"
+JOBSHOP_LIMIT = 60.0
+# tests/test_scheduling_packing.py's RCPSP instance (optimum 9)
+RCPSP_SM = """\
+jobs (incl. supersource/sink ):  5
+RESOURCES
+  - renewable                 :  1   R
+PRECEDENCE RELATIONS:
+jobnr.    #modes  #successors   successors
+   1        1          2           2   3
+   2        1          1           4
+   3        1          1           4
+   4        1          1           5
+   5        1          0
+************************************************************************
+REQUESTS/DURATIONS:
+jobnr. mode duration  R 1
+------------------------------------------------------------------------
+  1      1     0       0
+  2      1     3       2
+  3      1     4       2
+  4      1     2       1
+  5      1     0       0
+************************************************************************
+RESOURCEAVAILABILITIES:
+  R 1
+   2
+************************************************************************
+"""
+RCPSP_OPTIMUM = 9
+
+
+def lp_file_round_trip(bench_qp) -> QuadraticProgram:
+    """(a) The bench LP written with ``write_lp`` and read back with
+    ``read_lp``: every field equal to the generated QP's.  The LP format
+    writes a row without entries as ``0 x0``, so those rows come back as
+    explicit zeros, one a row; the fields are compared with them dropped.
+    Returns the QP as read."""
+    FRONTEND_DIR.mkdir(parents=True, exist_ok=True)
+    path = FRONTEND_DIR / "bench.lp"
+    t0 = time.perf_counter()
+    write_lp(bench_qp, str(path))
+    t_write = time.perf_counter() - t0
+    size = path.stat().st_size
+    t0 = time.perf_counter()
+    read = read_lp(str(path))
+    t_read = time.perf_counter() - t0
+    path.unlink()
+    zeros = int((read.constraint_matrix.data == 0).sum())
+    empty_rows = int((np.diff(sp.csr_matrix(
+        bench_qp.constraint_matrix).indptr) == 0).sum())
+    compact = sp.csr_matrix(read.constraint_matrix, copy=True)
+    compact.eliminate_zeros()
+    bad = _same_qp(bench_qp, dataclasses.replace(
+        read, constraint_matrix=compact))
+    print(f"LP-file round trip of the bench LP ({bench_qp.constraint_matrix.nnz}"
+          f" nonzeros): {size} bytes; write_lp {t_write:.3f} s, read_lp "
+          f"{t_read:.3f} s (phase 10 prints the MPS figures); {zeros} "
+          f"explicit zeros read back for {empty_rows} empty rows; fields "
+          f"that differ: {bad or 'none'}", flush=True)
+    require(not bad, f"the LP-file round trip changed the bench LP: {bad}")
+    require(zeros == empty_rows,
+            f"{zeros} explicit zeros for {empty_rows} empty rows")
+    return read
+
+
+def lp_file_solve(bench_qp, read_qp) -> dict:
+    """(a) ``pdlp.solve`` at the bench's parameters on the QP as read, the
+    launch counters set to 0 just before and read just after, bit for bit
+    the same call on the generated QP; then both SpMVs against their plain
+    versions on the read matrix, A and A^T.  Returns the launches."""
+    params = PdhgParams(**BENCH_PARAMS,
+                        iteration_limit=BENCH_ITERATION_LIMIT)
+    ref = solve(bench_qp, params)
+    r, launches = counted("pdlp.solve of the bench LP as read from its LP "
+                          "file", solve, read_qp, params)
+    same = {f: (np.array_equal(getattr(r, f), getattr(ref, f))
+                if isinstance(getattr(ref, f), np.ndarray)
+                else getattr(r, f) == getattr(ref, f))
+            for f in ("termination_reason", "iterations", "primal_objective",
+                      "dual_objective", "primal_solution", "dual_solution")}
+    print(f"  {r.termination_reason.name} after {r.iterations} iterations, "
+          f"objective {r.primal_objective!r}; against the generated LP's "
+          f"solve ({ref.termination_reason.name}, {ref.iterations}, "
+          f"{ref.primal_objective!r}): fields that differ "
+          f"{[f for f, ok in same.items() if not ok] or 'none'}", flush=True)
+    require(all(same.values()),
+            f"the LP file's solve differs from the LP's: {same}")
+    require(all(launches[k] > 0 for k in KERNELS),
+            f"an SpMV kernel was not launched by the LP file's solve: "
+            f"{launches}")
+    prob = pdlp_solver.build_device_problem(read_qp,
+                                            PdhgParams(**BENCH_PARAMS), "cuda")
+    errs: dict = {}
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        bm, bn = mat.block_shape
+        check_matrix(f"LP file {name} ({bm}x{bn})", mat.without_tiled(), errs)
+    del prob
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stacked_moderate() -> QuadraticProgram:
+    """Phase 4's four moderate LPs stacked block-diagonally."""
+    parts = [block_random_lp(**MODERATE, seed=s) for s in MODERATE_SEEDS]
+    cat = lambda f: np.concatenate([getattr(q, f) for q in parts])  # noqa: E731
+    return QuadraticProgram(
+        objective_vector=cat("objective_vector"),
+        constraint_matrix=sp.block_diag(
+            [q.constraint_matrix for q in parts], format="csr"),
+        constraint_lower=cat("constraint_lower"),
+        constraint_upper=cat("constraint_upper"),
+        variable_lower=cat("variable_lower"),
+        variable_upper=cat("variable_upper"), name="stacked_moderate")
+
+
+def decomposed_stack() -> dict:
+    """(b) ``decompose`` of the stack: four blocks, each solved by
+    ``pdlp.solve`` on the card to OPTIMAL; the blocks' objectives summed
+    against the sum of phase 4's HiGHS optima, and the assembled x held
+    to the stack's rows and bounds within the solve's tolerance
+    (eps_optimal_absolute + eps_optimal_relative times each block's bound
+    norm; the f32 solution moves off a bound by its rounding).  The rows without entries are in no
+    block (the reference's fault, copied): each has 0 in its bounds here,
+    so dropping them changes nothing.  Returns the launches."""
+    qp = stacked_moderate()
+    t0 = time.perf_counter()
+    dec = decompose(qp)
+    t_dec = time.perf_counter() - t0
+    kept = np.concatenate(dec.row_maps)
+    dropped = np.setdiff1d(np.arange(qp.num_constraints), kept)
+    a = sp.csr_matrix(qp.constraint_matrix)
+    print(f"decompose of the stacked moderate LPs ({qp.num_constraints}^2, "
+          f"{a.nnz} nonzeros): {len(dec.blocks)} blocks in {t_dec:.3f} s, "
+          f"{len(kept)} rows kept, {len(dropped)} empty rows dropped",
+          flush=True)
+    require(len(dec.blocks) == len(MODERATE_SEEDS),
+            f"decompose gave {len(dec.blocks)} blocks")
+    require(bool((np.diff(a.indptr)[dropped] == 0).all()),
+            "decompose dropped a row that has entries")
+    require(bool(((qp.constraint_lower[dropped] <= 0)
+                  & (qp.constraint_upper[dropped] >= 0)).all()),
+            "a dropped empty row excludes 0: the stack is infeasible")
+    total: dict = {}
+    results = []
+    params = PdhgParams()
+    for k, block in enumerate(dec.blocks):
+        r, launches = counted(f"block {k} ({block.num_constraints} x "
+                              f"{block.num_variables}) through pdlp.solve",
+                              solve, block, params)
+        require(r.termination_reason == TerminationReason.OPTIMAL,
+                f"block {k}: {r.termination_reason.name}")
+        require(launches["block_spmv_exact"] > 0,
+                f"block {k}: the exact SpMV was not launched: {launches}")
+        _add(total, launches)
+        results.append(r)
+    ref = sum(moderate_refs(MODERATE_SEEDS).values())
+    obj = sum(r.primal_objective for r in results)
+    rel = abs(obj - ref) / (1 + abs(ref))
+    x = dec.assemble_solution([r.primal_solution for r in results])
+    y = dec.assemble_duals([r.dual_solution for r in results])
+    ax = a @ x
+    viol = np.maximum(qp.constraint_lower - ax, 0) + np.maximum(
+        ax - qp.constraint_upper, 0)
+    tol = [params.eps_optimal_absolute + params.eps_optimal_relative
+           * pdlp_solver._combined_bounds_norm(b.constraint_lower,
+                                               b.constraint_upper)
+           for b in dec.blocks]
+    worst = [float(np.abs(viol[rm]).max()) for rm in dec.row_maps]
+    out_of_bounds = float(np.maximum(
+        np.maximum(qp.variable_lower - x, 0),
+        np.maximum(x - qp.variable_upper, 0)).max())
+    print(f"  blocks' objectives summed {obj!r}, HiGHS's for seeds "
+          f"{list(MODERATE_SEEDS)} summed {ref!r} (rel {rel:.2e}, <= 1e-4); "
+          f"assembled x: largest row violation per block {worst} (<= "
+          f"{[f'{v:.3e}' for v in tol]}), bounds {out_of_bounds:.1e}; "
+          f"assembled y of length {len(y)}; launches {total}", flush=True)
+    require(rel <= 1e-4, "the decomposed stack's objective disagrees with "
+            "HiGHS's")
+    require(all(w <= v for w, v in zip(worst, tol))
+            and out_of_bounds <= min(tol),
+            "the assembled x violates the stack's rows or bounds")
+    return total
+
+
+def fzn_knapsack(n: int, seed: int) -> tuple:
+    """Phase 14's 0/1 knapsack (``knapsack_cp``'s weights and values) as
+    FlatZinc text, and milp's optimum."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 20, n)
+    v = rng.integers(1, 30, n)
+    cap = int(w.sum() * 0.4)
+    xs = ", ".join(f"x[{i + 1}]" for i in range(n))
+    ints = lambda a: ", ".join(str(int(c)) for c in a)  # noqa: E731
+    text = (f"array [1..{n}] of var 0..1: x :: output_array([1..{n}]);\n"
+            f"var 0..{int(v.sum())}: value :: output_var;\n"
+            f"constraint int_lin_le([{ints(w)}], [{xs}], {cap});\n"
+            f"constraint int_lin_eq([{ints(v)}, -1], [{xs}, value], 0);\n"
+            f"solve maximize value;\n")
+    _, ref = knapsack_cp(n, seed)
+    return text, ref
+
+
+def jobshops() -> dict:
+    """(c) ft10 through ``solve_jobshop`` on its default route (LCG), ft06
+    through ``solve_jobshop_cdcl`` and the CP engine (``engine="cp"``,
+    CpSolver on the card), and RCPSP, each schedule checked."""
+    total: dict = {}
+    ft10 = parse_jobshop(str(FT10))
+    sol, launches = counted(f"ft10 through solve_jobshop (LCG, "
+                            f"{JOBSHOP_LIMIT:.0f} s limit)", solve_jobshop,
+                            ft10, JOBSHOP_LIMIT, device="cuda")
+    _add(total, launches)
+    require(sol is not None and sol.optimal
+            and sol.makespan == FT10_OPTIMUM,
+            f"ft10: {sol and (sol.makespan, sol.optimal)}, not OPTIMAL at "
+            f"{FT10_OPTIMUM}")
+    check_schedule(ft10.jobs, np.array(sol.starts), sol.makespan)
+    print(f"    makespan {sol.makespan}, optimal", flush=True)
+    ft06 = parse_jobshop(_example("jobshop_sat").FT06, is_text=True)
+    for label, fn, kw in (
+            ("ft06 through solve_jobshop_cdcl", solve_jobshop_cdcl, {}),
+            ("ft06 through solve_jobshop(engine='cp')", solve_jobshop,
+             dict(engine="cp", device="cuda"))):
+        sol, launches = counted(label, fn, ft06, 30.0, **kw)
+        _add(total, launches)
+        require(sol is not None and sol.optimal and sol.makespan == 55,
+                f"{label}: {sol and (sol.makespan, sol.optimal)}")
+        check_schedule(ft06.jobs, np.array(sol.starts), sol.makespan)
+        print(f"    makespan {sol.makespan}, optimal", flush=True)
+    inst = parse_rcpsp(RCPSP_SM, is_text=True)
+    sol, launches = counted("RCPSP (tests/test_scheduling_packing.py's)",
+                            solve_rcpsp, inst, 20.0, device="cuda")
+    _add(total, launches)
+    require(sol is not None and sol.optimal
+            and sol.makespan == RCPSP_OPTIMUM,
+            f"RCPSP: {sol and (sol.makespan, sol.optimal)}")
+    for i, succs in enumerate(inst.successors):
+        for j in succs:
+            require(sol.starts[j] >= sol.starts[i] + inst.durations[i],
+                    "RCPSP: a precedence is broken")
+    print(f"    RCPSP makespan {sol.makespan}, optimal", flush=True)
+    return total
+
+
+def flatzinc_knapsack(tmp: Path) -> dict:
+    """(c) The knapsack as FlatZinc through ``solve_fzn_text`` on the card,
+    and through ``python -m ortools_tpu_torch.flatzinc --device cuda`` in a
+    subprocess: OPTIMAL at milp's optimum, ending with ``==========``."""
+    n, seed = SHARED_TREE_KNAPSACK["n"], SHARED_TREE_KNAPSACK["seed"]
+    text, ref = fzn_knapsack(n, seed)
+    label = f"knapsack n {n} as FlatZinc through solve_fzn_text (milp {ref})"
+    res, launches = counted(label, solve_fzn_text, text, device="cuda")
+    print(f"    {res.status.name}, objective {res.objective!r}", flush=True)
+    require(res.status.name == "OPTIMAL" and res.objective == ref
+            and res.text.endswith("=========="),
+            f"{label}: {res.status.name} {res.objective}")
+    path = tmp / "knapsack.fzn"
+    path.write_text(text)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ortools_tpu_torch.flatzinc", "--device",
+         "cuda", str(path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    value = [ln for ln in lines if ln.startswith("value = ")]
+    print(f"  python -m ortools_tpu_torch.flatzinc --device cuda "
+          f"{path.name}: exit {proc.returncode} in {dt:.1f} s; "
+          f"{value} ... {lines[-1:] }", flush=True)
+    require(proc.returncode == 0 and lines[-1:] == ["=========="]
+            and value == [f"value = {ref};"],
+            f"the FlatZinc command line: exit {proc.returncode}, "
+            f"{lines[-3:]}; {proc.stderr[-2000:]}")
+    return launches
+
+
+def queens_classic(n: int) -> tuple:
+    """n-queens through the classic facade, every solution collected."""
+    s = pywrapcp.Solver(f"queens{n}", device="cuda")
+    q = [s.IntVar(0, n - 1, f"q{i}") for i in range(n)]
+    s.AllDifferent(q)
+    s.AllDifferent([q[i] + i for i in range(n)])
+    s.AllDifferent([q[i] - i for i in range(n)])
+    collector = s.AllSolutionCollector()
+    collector.Add(q)
+    ok = s.Solve(s.Phase(q), [collector])
+    sols = [[collector.Value(k, v) for v in q]
+            for k in range(collector.SolutionCount())]
+    return ok, sols
+
+
+def minimize_classic() -> tuple:
+    """A small integer model through ``Solver.Minimize``: 3a + 2b + 4c >= 17,
+    a + b <= 6, 0 <= a, b, c <= 10, minimize 5a + 4b + 7c."""
+    s = pywrapcp.Solver("minimize", device="cuda")
+    a, b, c = (s.IntVar(0, 10, name) for name in "abc")
+    s.Add(3 * a + 2 * b + 4 * c >= 17)
+    s.Add(a + b <= 6)
+    cost = 5 * a + 4 * b + 7 * c
+    obj = s.Minimize(cost, 1)
+    ok = s.Solve(s.Phase([a, b, c]), [obj])
+    return ok, s.Value(cost)
+
+
+def classic_cp() -> dict:
+    """(c) ``pywrapcp.Solver`` on the card: 8-queens with an all-solutions
+    collector (92, each checked), and one ``Solve`` with ``Minimize`` at
+    milp's optimum."""
+    total: dict = {}
+    (ok, sols), launches = counted("8-queens through pywrapcp.Solver, all "
+                                   "solutions", queens_classic, 8)
+    _add(total, launches)
+    valid = {tuple(sq) for sq in sols
+             if len({v + i for i, v in enumerate(sq)}) == 8
+             and len({v - i for i, v in enumerate(sq)}) == 8
+             and len(set(sq)) == 8}
+    print(f"    {len(sols)} solutions, {len(valid)} distinct and valid",
+          flush=True)
+    require(ok and len(sols) == 92 and len(valid) == 92,
+            f"8-queens: {len(sols)} solutions, {len(valid)} valid")
+    res = milp(np.array([5.0, 4.0, 7.0]), constraints=LinearConstraint(
+        np.array([[3.0, 2.0, 4.0], [1.0, 1.0, 0.0]]), [17, -np.inf],
+        [np.inf, 6]), bounds=Bounds(0, 10), integrality=np.ones(3))
+    ref = round(res.fun)
+    (ok, value), launches = counted(f"pywrapcp Solve with Minimize (milp "
+                                    f"{ref})", minimize_classic)
+    _add(total, launches)
+    print(f"    objective {value}", flush=True)
+    require(ok and value == ref, f"pywrapcp Minimize: {ok} {value}")
+    return total
+
+
+def _example(stem: str):
+    path = EXAMPLES_DIR / f"{stem}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _DeviceSpy:
+    """For its length, records the ``device`` that each call of
+    ``max_hs.minimize_max_hs`` is given."""
+
+    def __enter__(self):
+        self.devices = []
+        self._orig = inner = cp_max_hs.minimize_max_hs
+
+        def spy(*a, **k):
+            self.devices.append(str(k.get("device")))
+            return inner(*a, **k)
+        cp_max_hs.minimize_max_hs = spy
+        return self
+
+    def __exit__(self, *exc):
+        cp_max_hs.minimize_max_hs = self._orig
+
+
+def examples() -> dict:
+    """(d) The nine ``examples_torch/`` scripts, each ``main(device=
+    "cuda")`` at its defaults, passing its own asserts."""
+    total: dict = {}
+    stems = sorted(p.stem for p in EXAMPLES_DIR.glob("*.py"))
+    require(len(stems) == 9, f"examples_torch has {stems}")
+    for stem in stems:
+        mod = _example(stem)
+        with _DeviceSpy() as spy:
+            out, launches = counted(f"examples_torch/{stem}.py", mod.main,
+                                    device="cuda")
+        _add(total, launches)
+        if stem == "pdlp_large_lp":
+            require(out.termination_reason == TerminationReason.OPTIMAL,
+                    f"pdlp_large_lp: {out.termination_reason.name}")
+            require(launches["block_spmv_exact"] > 0,
+                    f"pdlp_large_lp launched no SpMV: {launches}")
+        if stem == "maxsat_wcnf":
+            print(f"    minimize_max_hs called on {spy.devices}", flush=True)
+            require(spy.devices and all(d.startswith("cuda")
+                                        for d in spy.devices),
+                    f"maxsat_wcnf's MaxHS ran on {spy.devices}")
+    return total
+
+
+def slice13() -> dict:
+    """Phase 15.  Returns the launches of its counted calls."""
+    t0 = time.perf_counter()
+    bench_qp = block_random_lp(**BENCH)
+    read_qp = lp_file_round_trip(bench_qp)
+    launches = lp_file_solve(bench_qp, read_qp)
+    del read_qp, bench_qp
+    torch.cuda.empty_cache()
+    _add(launches, decomposed_stack())
+    _add(launches, jobshops())
+    with tempfile.TemporaryDirectory(dir=FRONTEND_DIR) as tmp:
+        _add(launches, flatzinc_knapsack(Path(tmp)))
+    _add(launches, classic_cp())
+    _add(launches, examples())
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3963,6 +4402,11 @@ def main() -> int:
           "breaks)")
     slice12_launches, fork_errs = slice12()
 
+    phase("15. the last modules: the bench LP through an LP file, the "
+          "decomposer, scheduling (ft10 on LCG), FlatZinc, pywrapcp, the "
+          "nine examples")
+    slice13_launches = slice13()
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -3981,7 +4425,8 @@ def main() -> int:
             host_front_ends_launches=host_launches[name],
             cp_sat_launches=cp_launches[name],
             slice12_launches=slice12_launches[name],
-            after_fork_max_abs_err=fork_errs[name], ok=True))
+            after_fork_max_abs_err=fork_errs[name],
+            slice13_launches=slice13_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -3996,7 +4441,8 @@ def main() -> int:
         mesh_path_launches=mesh_launches[SPMM["name"]],
         host_front_ends_launches=host_launches[SPMM["name"]],
         cp_sat_launches=cp_launches[SPMM["name"]],
-        slice12_launches=slice12_launches[SPMM["name"]], ok=True))
+        slice12_launches=slice12_launches[SPMM["name"]],
+        slice13_launches=slice13_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

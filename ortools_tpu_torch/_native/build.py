@@ -22,6 +22,10 @@ OUT_DIR = _SRC_DIR.parents[1] / "build" / "native"
 GXX = ("g++", "-O2", "-std=c++17", "-shared", "-fPIC")
 
 
+class NativeBuildError(RuntimeError):
+    """A native core that has no source or that g++ could not compile."""
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``<name>.cc``'s present text goes."""
     src = _SRC_DIR / f"{name}.cc"
@@ -31,4 +35,10 @@ def library_path(name: str) -> Path:
 
 def load_library(name: str = "smalllp") -> ctypes.CDLL:
     """Compile (if needed) and dlopen the named native module."""
-    return _build.load(list(GXX), _SRC_DIR / f"{name}.cc", library_path(name))
+    src = _SRC_DIR / f"{name}.cc"
+    if not src.exists():
+        raise NativeBuildError(f"no native source {src}")
+    try:
+        return _build.load(list(GXX), src, library_path(name))
+    except RuntimeError as e:  # g++ failed
+        raise NativeBuildError(str(e)) from e

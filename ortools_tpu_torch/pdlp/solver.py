@@ -1263,6 +1263,18 @@ def _check_optimality(stats: dict, prob_consts: dict, params: PdhgParams,
     return bool(ok)
 
 
+def params_cache_key(params: PdhgParams) -> tuple:
+    """Hashable identity of a PdhgParams: its fields by name, lists as
+    tuples."""
+    vals = []
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if isinstance(v, list):
+            v = tuple(v)
+        vals.append((f.name, v))
+    return tuple(vals)
+
+
 def _invalid_result(qp: QuadraticProgram,
                     reason: TerminationReason) -> SolveResult:
     n, m = qp.num_variables, qp.num_constraints

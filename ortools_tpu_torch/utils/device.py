@@ -3,6 +3,7 @@ asks for the CPU, and never the CPU in its place."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 import torch
@@ -26,6 +27,16 @@ def resolve_device_or_exit(device, prog: str) -> torch.device:
     except RuntimeError as e:
         print(f"{prog}: {e}", file=sys.stderr)
         raise SystemExit(2) from None
+
+
+def device_option_or_exit(args, prog: str):
+    """Take ``--device cuda|cpu`` (default ``cuda``) out of a command
+    line's ``args``: ``(resolve_device_or_exit(device, prog), the other
+    args)``."""
+    p = argparse.ArgumentParser(prog=prog, add_help=False)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ns, rest = p.parse_known_args(args)
+    return resolve_device_or_exit(ns.device, prog), rest
 
 
 def lp_dtype(device: torch.device) -> torch.dtype:

@@ -755,3 +755,28 @@ def test_forked_portfolio_beside_a_cuda_context(cuda):
     assert not mp.active_children()
     y = torch.ones(1 << 20, device=cuda, dtype=torch.float64)
     assert float(y.sum()) == float(1 << 20)
+
+
+@pytest.mark.gpu
+def test_lp_file_solve_on_card_equals_the_solve_of_the_lp(cuda, tmp_path):
+    """A moderate LP written with ``write_lp`` and read back with
+    ``read_lp`` (its empty rows come back as explicit zeros, which the
+    scaling drops) solves on the card bit for bit as the LP itself, at
+    the bench's parameters (float32, 8x128 blocks, both streams)."""
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.models.lp_format import read_lp, write_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+
+    qp = block_random_lp(2048, 2048, 512, (8, 128), seed=1)
+    path = tmp_path / "m.lp"
+    write_lp(qp, str(path))
+    read = read_lp(str(path))
+    params = PdhgParams(dtype=torch.float32, block_shape=(8, 128))
+    r, rr = (solve(q, params, device=cuda) for q in (qp, read))
+    assert r.termination_reason.name == "OPTIMAL"
+    assert rr.termination_reason == r.termination_reason
+    assert rr.iterations == r.iterations
+    assert (rr.primal_objective, rr.dual_objective) == (
+        r.primal_objective, r.dual_objective)
+    np.testing.assert_array_equal(rr.primal_solution, r.primal_solution)
+    np.testing.assert_array_equal(rr.dual_solution, r.dual_solution)

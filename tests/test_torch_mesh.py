@@ -44,7 +44,7 @@ from ortools_tpu_torch.pdlp import solver as T
 from tests.test_torch_pdlp import (_presolve_lp, assert_close, jax_v0,
                                    port_qp, problem_arrays, scipy_solve)
 from tests.torch_mesh_ranks import (MeshSpec, mesh_layout, mesh_products,
-                                   run_tasks, timed_solve)
+                                   run_example, run_tasks, timed_solve)
 
 torch.set_num_threads(1)
 
@@ -182,6 +182,9 @@ def _tasks(world: int):
             qp=port_qp(qp), params=TParams(dtype=torch.float64, num_shards=4),
             device="cpu", mesh=MeshSpec((8,)))))
         names.append("num_shards_not_the_mesh")
+    if world == 2:
+        tasks.append((run_example, dict(stem="pdlp_large_lp", device="cpu")))
+        names.append("example_pdlp_large_lp")
     for label, (make, kw, shape, _) in SOLVES.items():
         if math.prod(shape) != world:
             continue
@@ -386,6 +389,22 @@ def test_mesh_solve_matches_jax(world8, label):
 
 def test_mesh_size_2_matches_jax(world2):
     _check_solve(world2, "sharded_mesh_size_2")
+
+
+def test_large_lp_example_takes_the_mesh_path_on_two_ranks(world2):
+    """examples_torch/pdlp_large_lp.py in a group of two ranks builds a
+    mesh (the counterpart of the JAX example's ``jax.device_count() > 1``):
+    both ranks give the same result, OPTIMAL at the single device's
+    objective within the solve's tolerance (1e-6)."""
+    outs = [got["example_pdlp_large_lp"] for got in world2["ranks"]]
+    assert outs[0] == outs[1]
+    ranks, status, objective, _ = outs[0]
+    assert (ranks, status) == (2, "OPTIMAL")
+    _, single_status, single_objective, _ = run_example("pdlp_large_lp",
+                                                        "cpu")
+    assert single_status == "OPTIMAL"
+    assert abs(objective - single_objective) <= 1e-6 * (
+        1 + abs(single_objective))
 
 
 def test_1d_mesh_equals_the_single_device_solve(world8):

@@ -1,9 +1,11 @@
 """The port's own copies of the JAX package's host modules against the
-originals: ``models/lp.py``, ``models/generators.py::block_random_lp`` and
+originals: ``models/lp.py``, ``models/generators.py``'s
+``block_random_lp`` and ``multicommodity_flow_lp``, and
 ``utils/status.py::TerminationReason``.  The port imports nothing of the
 JAX package, so these copies must stay equal to what they copy."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -46,6 +48,24 @@ def test_random_lp_copy_matches(m, n, density, seed):
 def test_block_random_lp_copy_matches(m, n, nb, block_shape, seed):
     _assert_same_qp(tgen.block_random_lp(m, n, nb, block_shape, seed=seed),
                     jgen.block_random_lp(m, n, nb, block_shape, seed=seed))
+
+
+# tests/test_lp_battery.py:109's case and examples/pdlp_large_lp.py's
+@pytest.mark.parametrize("nodes,arcs,commodities,seed", [
+    (12, 40, 3, 4), (30, 120, 4, 1)])
+def test_multicommodity_flow_lp_copy_matches(nodes, arcs, commodities, seed):
+    t = tgen.multicommodity_flow_lp(nodes, arcs, commodities, seed=seed)
+    j = jgen.multicommodity_flow_lp(nodes, arcs, commodities, seed=seed)
+    _assert_same_qp(t, j)
+    # bit for bit, down to the CSR arrays
+    for f in ("indptr", "indices", "data"):
+        tv, jv = getattr(t.constraint_matrix, f), getattr(j.constraint_matrix, f)
+        assert tv.dtype == jv.dtype and np.array_equal(tv, jv), f
+
+
+def test_multicommodity_flow_lp_text_equals_the_original():
+    assert (inspect.getsource(tgen.multicommodity_flow_lp)
+            == inspect.getsource(jgen.multicommodity_flow_lp))
 
 
 def test_quadratic_program_methods_match():

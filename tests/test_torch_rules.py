@@ -1,6 +1,10 @@
 """Rules of the PyTorch port that no functional test would catch."""
 
 import ast
+import importlib.util
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +38,11 @@ from ortools_tpu_torch.sat.solver import solve_model
 from ortools_tpu_torch.graph.tsp_paths import christofides_tsp
 from ortools_tpu_torch.routing import RoutingIndexManager, RoutingModel
 from ortools_tpu_torch.routing.breaks import schedule_route_with_breaks
+from ortools_tpu_torch.scheduling import parse_jobshop, solve_jobshop
+from ortools_tpu_torch.scheduling.rcpsp import RcpspInstance, solve_rcpsp
+from ortools_tpu_torch import constraint_solver
+from ortools_tpu_torch.flatzinc import driver as flatzinc_driver
+from ortools_tpu_torch.flatzinc import solve_fzn_text
 
 # The tensors are small: one thread each keeps the parallel test run's
 # workers off each other's cores.
@@ -43,7 +52,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ortools_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_spmm_probe.py",
     ROOT / "scripts" / "torch_mip_probe.py",
-    ROOT / "scripts" / "torch_mesh_probe.py"]
+    ROOT / "scripts" / "torch_mesh_probe.py"] + sorted(
+    (ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -167,6 +177,42 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
     assert exc.value.code == 2
     out = capsys.readouterr()
     assert "device='cpu'" in out.err and "Status" not in out.out
+    # scheduling, the classic CP facade and FlatZinc: on every route,
+    # the host engines' too
+    ft = parse_jobshop("2 2\n0 3 1 2\n1 4 0 1\n", is_text=True)
+    for engine in ("auto", "lcg", "cdcl", "cp"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            solve_jobshop(ft, engine=engine)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_rcpsp(RcpspInstance("", 1, [1], [0, 2], [[0], [1]], [[1], []]))
+    classic = constraint_solver.Solver("s")
+    cx = classic.IntVar(0, 2, "x")
+    classic.Add(cx >= 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classic.Solve(classic.Phase([cx]))
+    fzn = tmp_path / "m.fzn"
+    fzn.write_text("var 1..3: x :: output_var;\nsolve satisfy;\n")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_fzn_text(fzn.read_text())
+    # the FlatZinc command line without --device: exit code 2, nothing
+    # solved
+    with pytest.raises(SystemExit) as exc:
+        flatzinc_driver.main([str(fzn)])
+    assert exc.value.code == 2
+    out = capsys.readouterr()
+    assert "device='cpu'" in out.err and "x = " not in out.out
+    # an example's main, and its command line
+    example = ROOT / "examples_torch" / "simple_sat_program.py"
+    spec = importlib.util.spec_from_file_location("simple_sat", example)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main()
+    proc = subprocess.run([sys.executable, str(example)], cwd=ROOT,
+                          capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert "x = " not in proc.stdout
 
 
 def test_cdcl_library_builds_outside_the_source_tree():
@@ -226,8 +272,17 @@ def test_port_file_list_covers_the_cp_sat_modules():
                 "graph/components.py", "graph/tsp_paths.py",
                 "routing/model.py", "routing/sat_path.py",
                 "routing/breaks.py", "routing/lp_scheduling.py",
-                "routing/parsers.py", "routing/index_manager.py"):
+                "routing/parsers.py", "routing/index_manager.py",
+                "models/lp_format.py", "models/lp_decomposer.py",
+                "scheduling/__init__.py", "scheduling/jobshop.py",
+                "scheduling/rcpsp.py", "flatzinc/__init__.py",
+                "flatzinc/__main__.py", "flatzinc/driver.py",
+                "constraint_solver/__init__.py",
+                "constraint_solver/pywrapcp.py", "utils/timers.py",
+                "utils/stats.py", "utils/interrupt.py"):
         assert rel in names, rel
+    examples = {p.name for p in PORT_FILES if "examples_torch" in p.parts}
+    assert len(examples) == 9, examples
 
 
 def test_tf32_is_off_and_matmul_precision_highest():

@@ -6,6 +6,8 @@ each rank runs ``run_tasks`` on a list of ``(fn, kwargs)``.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 from typing import Any, List, NamedTuple, Sequence
 
 import torch
@@ -85,3 +87,17 @@ def timed_solve(qp, params, mesh, device="cpu", margin=3.0):
     limit = max(params.time_sec_limit, margin * float(slowest[0]))
     return S.solve(qp, dataclasses.replace(params, time_sec_limit=limit),
                    device=device, mesh=mesh), limit
+
+
+def run_example(stem: str, device: str) -> tuple:
+    """``examples_torch/<stem>.py``'s ``main(device=device)`` in this rank:
+    (the group's size, the termination reason's name, the objective, the
+    iterations)."""
+    path = Path(__file__).resolve().parents[1] / "examples_torch" / f"{stem}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    r = mod.main(device=device)
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    return ranks, r.termination_reason.name, r.primal_objective, r.iterations
