@@ -119,14 +119,15 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 12. The host front ends that reach the card through ``mip.solve`` (run
    before phase 8's lines): ``solve_bin_packing`` on Falkenauer's u120
    (120 sizes uniform in [20, 100] from seed 0, capacity 150; LB 49, FFD
-   50) under a 60 s limit, its assignment MIP sent to ``PdhgNodeBackend``
+   50) under a 40 s limit, its assignment MIP sent to ``PdhgNodeBackend``
    by the auto rule, the SpMV and the SpMM launched and held to their
    plain versions on the first BatchSolver's scaled A and Aᵀ, the device
    FJ's calls (none without a root incumbent: the B&B's gate), the
    packing checked (or ``None`` printed), HiGHS beside it;
-   ``solve_boolean_lp`` on edge_packing_300_s15 under a 60 s limit, its
+   ``solve_boolean_lp`` on edge_packing_300_s15 under a 40 s limit, its
    incumbent checked in numpy and its bound valid against HiGHS's 20 s
-   incumbent; ``IntegralSolver`` on gap_20x5_s10 and
+   incumbent (the two limits were 60 s, cut to 40 s to make room for
+   phase 16); ``IntegralSolver`` on gap_20x5_s10 and
    ``solve_vector_bin_packing`` on tests/test_scheduling_packing.py's
    three cases and u60 (LB 24, FFD 25, 1,194 arcs), OPTIMAL at milp's
    objective; ``minimize_max_hs`` on tests/test_max_hs.py's weighted
@@ -203,9 +204,24 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (``pdlp_large_lp`` launching the SpMV, ``maxsat_wcnf``'s MaxHS given
    the card).  Each prints its seconds, peak device memory and launches,
    the counters set to 0 just before it and read just after.
+16. The bench port (run before phase 8's lines), each script in a
+   subprocess from the checkout with the kernels of phase 2: ``python -m
+   ortools_tpu_torch bench`` (``bench_torch.py``), ``bench_large_torch.py``
+   and ``bench_miplib_torch.py 1.0 3``: the whole battery at scale 1.0
+   with a 3 s limit an instance and HiGHS under the same limit (a cut:
+   bench_miplib's default is 120 s; MIPLIB_LIMIT).  Each must exit 0 with
+   a JSON last line: the bench's every key of bench.py's ``_emit`` and the
+   port's additions, its rates finite and positive, both benches naming
+   the card; 20 instance records, each with its feasibility check run
+   (no matched fraction is required at 3 s).  Prints each script's
+   seconds and ``#`` lines, and the bench's exact and fast rates beside
+   phase 5's for the same stream (the bench leaves out the statistics and
+   the host's read) with their ratio; the scripts' launches, summed from
+   their ``# launches`` lines, must each be above 0.
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
    path, on the front end, on the mesh path, on the host front ends, on
-   CP-SAT, on phase 14 and on phase 15, the SpMVs' errors after the forks,
+   CP-SAT, on phase 14, on phase 15 and on phase 16 (``phase16_launches``,
+   the bench scripts' own), the SpMVs' errors after the forks,
    and the fast SpMV's bf16 CSR yardstick), the total time,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -2557,7 +2573,9 @@ def gloo_ranks() -> dict:
 # Falkenauer's "u" class: integer sizes uniform in [20, 100] from
 # numpy.random.default_rng(seed), capacity 150
 U_CAPACITY, U_LOW, U_HIGH, U_SEED = 150, 20, 100, 0
-U120 = dict(items=120, lower_bound=49, ffd=50, limit=60.0)
+# u120's and the BOP portfolio's limits (U120, BOP_LIMIT): 40 s, so that
+# the whole run, phase 16 included, stays under 1,100 s
+U120 = dict(items=120, lower_bound=49, ffd=50, limit=40.0)
 # the arc-flow case of the same class (LB 24, FFD 25, 1,194 arcs); u120 is
 # left out: solve_vector_bin_packing has no time limit (PERF.md §7)
 U_ARC_FLOW = dict(items=60, nodes=120, arcs=1194, bins=24)
@@ -2565,7 +2583,7 @@ U_ARC_FLOW = dict(items=60, nodes=120, arcs=1194, bins=24)
 ARC_FLOW_CASES = ((([10], [[6], [5], [4], [3], [2]], [1, 1, 1, 1, 1]), 2),
                   (([6], [[3]], [4]), 2),
                   (([5, 6], [[3, 1], [3, 5], [2, 4]], [1, 1, 1]), 2))
-BOP_MIP, BOP_LIMIT = "edge_packing_300_s15", 60.0
+BOP_MIP, BOP_LIMIT = "edge_packing_300_s15", 40.0
 INTEGRAL_MIP = "gap_20x5_s10"
 # tests/test_max_hs.py::weighted_maxsat_model's size and two of its seeds
 MAXSAT = dict(n=10, m=18, seeds=(0, 1))
@@ -2586,7 +2604,7 @@ def check_packing(sizes: list, capacity: int, bins: list,
 
 
 def assignment_packing(errs: dict) -> dict:
-    """(a) ``solve_bin_packing`` on u120 under a 60 s limit: the auto rule's
+    """(a) ``solve_bin_packing`` on u120 under a 40 s limit: the auto rule's
     backend, the SpMV and the SpMM launched and held to their plain
     versions on the first BatchSolver's scaled A and Aᵀ, the device FJ's
     calls and share of the root, the packing checked; HiGHS on the same
@@ -2645,7 +2663,7 @@ def assignment_packing(errs: dict) -> dict:
 
 
 def boolean_portfolio(errs: dict) -> dict:
-    """(b) ``solve_boolean_lp`` on BOP_MIP under a 60 s limit: the
+    """(b) ``solve_boolean_lp`` on BOP_MIP under a 40 s limit: the
     incumbent checked in numpy, the bound valid against HiGHS's 20 s
     incumbent, the strategies' wins and the launches.  Returns them."""
     qp = battery()[BOP_MIP]
@@ -4298,6 +4316,131 @@ def slice13() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 16. The bench port
+# ---------------------------------------------------------------------------
+
+# bench_miplib's default limit is 120 s an instance; 3 s is a cut, so that
+# the battery (20 instances, HiGHS under the same limit) fits the run.
+MIPLIB_LIMIT = 3.0
+BENCH_RUNS = (
+    ("python -m ortools_tpu_torch bench", ["-m", "ortools_tpu_torch",
+                                           "bench"], 420),
+    ("bench_large_torch.py", ["bench_large_torch.py"], 300),
+    (f"bench_miplib_torch.py 1.0 {MIPLIB_LIMIT:g}",
+     ["bench_miplib_torch.py", "1.0", f"{MIPLIB_LIMIT:g}"], 420),
+)
+# bench.py's _emit keys (bench.py:298-317) and the port's additions
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "baseline_cpu_iter_per_sec_pinned",
+              "baseline_cpu_iter_per_sec_live", "problem", "device",
+              "fast_stream_iter_per_sec", "spmv",
+              "batched64_lp_iterations_per_sec", "power_limit_w",
+              "attempts_per_iteration")
+SPMV_KEYS = ("dispatch_fixed_ms", "exact_us", "exact_gbps", "fast_us",
+             "fast_gbps", "device_stream_gbps", "launch_floor_us")
+LARGE_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "baseline_cpu_iter_per_sec", "problem", "device",
+              "power_limit_w")
+
+
+def _positive(v) -> bool:
+    return isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+
+
+def bench_script(label: str, args: list, timeout: float) -> tuple:
+    """One bench script in a subprocess from the checkout (the kernels
+    built in phase 2 are reused): exit 0 and a JSON last line required.
+    Prints its seconds and its stderr lines that start with ``#``; returns
+    (the JSON object, its launches, seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+    print(f"{label}: exit {proc.returncode} in {dt:.1f} s", flush=True)
+    for ln in notes:
+        print(f"  {ln}")
+    require(proc.returncode == 0,
+            f"{label} failed: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    require(bool(lines), f"{label} printed nothing")
+    try:
+        out = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        raise SmokeFailure(f"{label}'s last line is not JSON: "
+                           f"{lines[-1][:500]}") from None
+    launches = [json.loads(ln.split(":", 1)[1]) for ln in notes
+                if ln.startswith("# launches:")]
+    require(len(launches) == 1, f"{label} printed no launch line")
+    return out, launches[0], dt
+
+
+def slice14(stream_s: dict) -> dict:
+    """Phase 16.  ``stream_s``: phase 5's seconds per major of each stream.
+    Returns the summed launches of the three scripts."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    results, total = [], {}
+    for label, args, timeout in BENCH_RUNS:
+        out, launches, _ = bench_script(label, args, timeout)
+        results.append(out)
+        _add(total, launches)
+    bench, large, miplib = results
+
+    missing = [k for k in BENCH_KEYS if k not in bench] + [
+        f"spmv.{k}" for k in SPMV_KEYS if k not in bench.get("spmv", {})]
+    require(not missing, f"the bench's JSON lacks {missing}")
+    rates = dict(value=bench["value"],
+                 fast_stream_iter_per_sec=bench["fast_stream_iter_per_sec"],
+                 exact_us=bench["spmv"]["exact_us"],
+                 fast_us=bench["spmv"]["fast_us"],
+                 device_stream_gbps=bench["spmv"]["device_stream_gbps"],
+                 batched64=bench["batched64_lp_iterations_per_sec"])
+    require(all(_positive(v) for v in rates.values()),
+            f"a bench rate is not finite and positive: {rates}")
+    require(bench["device"] == name and large["device"] == name,
+            f"the benches name another device: {bench['device']}, "
+            f"{large['device']}")
+    print(f"bench: {json.dumps(bench)}")
+    freq = PdhgParams().termination_check_frequency
+    for stream, key in (("exact", "value"),
+                        ("fast", "fast_stream_iter_per_sec")):
+        p5 = freq / stream_s[stream]
+        print(f"{stream} stream: bench {bench[key]} iter/s (main graphs "
+              f"only), phase 5 {p5:.1f} iter/s (majors with statistics and "
+              f"the host's read): ratio {bench[key] / p5:.3f}; attempts per "
+              f"iteration {bench['attempts_per_iteration'][stream]}")
+
+    missing = [k for k in LARGE_KEYS if k not in large]
+    require(not missing, f"bench_large's JSON lacks {missing}")
+    require(_positive(large["value"]),
+            f"bench_large's rate is {large['value']}")
+    print(f"bench_large: {json.dumps(large)}")
+
+    records = miplib.get("instances", [])
+    require(len(records) == 20, f"bench_miplib gave {len(records)} records")
+    solved = [r for r in records if r["status"] in ("OPTIMAL", "FEASIBLE")]
+    require(all((r.get("feasible") in (True, False))
+                == (r["status"] in ("OPTIMAL", "FEASIBLE"))
+                for r in records),
+            "a bench_miplib record lacks its feasibility check")
+    print(f"bench_miplib at {MIPLIB_LIMIT:g} s an instance: matched "
+          f"{miplib['value']} ({sum(r['matched'] for r in records)}/20), "
+          f"{len(solved)} with a solution, "
+          f"{sum(r['feasible'] is True for r in solved)} of them feasible; "
+          f"{miplib['total_nodes']} nodes")
+    for r in records:
+        print(f"  {r}")
+    require(all(v > 0 for v in total.values()),
+            f"a kernel was not launched by the benches: {total}")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches {total}",
+          flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4407,6 +4550,11 @@ def main() -> int:
           "nine examples")
     slice13_launches = slice13()
 
+    phase("16. the bench port: python -m ortools_tpu_torch bench, "
+          "bench_large_torch.py, bench_miplib_torch.py "
+          f"1.0 {MIPLIB_LIMIT:g}")
+    slice14_launches = slice14(major_s)
+
     phase("8. kernels")
     kernels = []
     for name, spec in KERNELS.items():
@@ -4426,7 +4574,8 @@ def main() -> int:
             cp_sat_launches=cp_launches[name],
             slice12_launches=slice12_launches[name],
             after_fork_max_abs_err=fork_errs[name],
-            slice13_launches=slice13_launches[name], ok=True))
+            slice13_launches=slice13_launches[name],
+            phase16_launches=slice14_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -4442,7 +4591,8 @@ def main() -> int:
         host_front_ends_launches=host_launches[SPMM["name"]],
         cp_sat_launches=cp_launches[SPMM["name"]],
         slice12_launches=slice12_launches[SPMM["name"]],
-        slice13_launches=slice13_launches[SPMM["name"]], ok=True))
+        slice13_launches=slice13_launches[SPMM["name"]],
+        phase16_launches=slice14_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -11,8 +11,13 @@ Prints the standard status / objective / walltime block and optionally
 writes a .sol file (MIPLIB format: objective comment + name value lines).
 ``--device`` names the device the pdlp and mip routes run on: the card by
 default; with no card the command exits non-zero unless it is
-``--device cpu``.  The JAX command's ``bench`` subcommand runs the JAX
-package's bench and has no counterpart here yet.
+``--device cpu``.
+
+    python -m ortools_tpu_torch bench
+
+runs ``bench_torch.py`` from the working directory (the root of a
+checkout), as the JAX command runs ``bench.py``: on the card only; with no
+card it exits 2.
 """
 
 from __future__ import annotations
@@ -56,6 +61,21 @@ def _cmd_solve(args: argparse.Namespace) -> int:
     return 0 if status.name in ("OPTIMAL", "FEASIBLE") else 1
 
 
+def _cmd_bench(args: argparse.Namespace) -> int:
+    import runpy
+
+    from ortools_tpu_torch.utils.device import resolve_device
+
+    try:
+        resolve_device("cuda")
+    except RuntimeError as e:
+        print(f"ortools_tpu_torch: {e}", file=sys.stderr)
+        return 2
+    sys.argv = ["bench_torch.py"]
+    runpy.run_path("bench_torch.py", run_name="__main__")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="ortools_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -67,6 +87,8 @@ def main(argv=None) -> int:
     ps.add_argument("--sol_file", default=None)
     ps.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ps.set_defaults(fn=_cmd_solve)
+    pb = sub.add_parser("bench", help="run the benchmark on the card")
+    pb.set_defaults(fn=_cmd_bench)
     args = p.parse_args(argv)
     return args.fn(args)
 

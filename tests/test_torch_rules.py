@@ -52,7 +52,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ortools_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_spmm_probe.py",
     ROOT / "scripts" / "torch_mip_probe.py",
-    ROOT / "scripts" / "torch_mesh_probe.py"] + sorted(
+    ROOT / "scripts" / "torch_mesh_probe.py",
+    ROOT / "scripts" / "torch_bench_probe.py", ROOT / "bench_torch.py",
+    ROOT / "bench_large_torch.py", ROOT / "bench_miplib_torch.py"] + sorted(
     (ROOT / "examples_torch").glob("*.py"))
 
 
@@ -213,6 +215,20 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
                           env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
     assert "x = " not in proc.stdout
+    # the bench scripts and the CLI's bench: exit code 2, nothing measured
+    # (a script's main resolves the card before any work)
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    for script in ("bench_torch", "bench_large_torch", "bench_miplib_torch"):
+        mod = importlib.import_module(script)
+        with pytest.raises(SystemExit) as exc:
+            mod.main()
+        assert exc.value.code == 2, script
+        out = capsys.readouterr()
+        assert "device='cpu'" in out.err and out.out == "", script
+    assert cli.main(["bench"]) == 2
+    out = capsys.readouterr()
+    assert "device='cpu'" in out.err and out.out == ""
 
 
 def test_cdcl_library_builds_outside_the_source_tree():
