@@ -61,6 +61,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -487,6 +488,24 @@ def _emit(ips, cpu_ips, batched_ips, nnz, device_name, power_limit_w,
         out["attempts_per_iteration"] = attempts
     print(json.dumps(out))
     return out
+
+
+def save_json(stem: str, out: dict) -> Path:
+    """Write ``out`` to ``build/bench/<stem>.json`` under the checkout (the
+    JAX scripts write theirs under ``artifacts/``, which no port run
+    touches)."""
+    path = Path(__file__).resolve().parent / "build" / "bench" / f"{stem}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1))
+    return path
+
+
+def print_peak_memory(device: torch.device) -> None:
+    """``# peak device memory: N bytes`` on stderr: the most this process
+    held on ``device`` (``torch.cuda.max_memory_allocated``)."""
+    print(f"# peak device memory: "
+          f"{torch.cuda.max_memory_allocated(device)} bytes",
+          file=sys.stderr, flush=True)
 
 
 def print_launches() -> None:

@@ -70,11 +70,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    of them with a node-LP batch of several nodes, with its nodes, node-LP
    batches, node LPs/s, BatchSolvers built and capture seconds;
    ``mip.solve`` under ``MipParams``' defaults (the PDHG backend by the
-   auto rule, the device FJ) on edge_packing_300_s15 with a 60 s limit: a
+   auto rule, the device FJ) on edge_packing_300_s15 with a 35 s limit
+   (60 s until phase 17 needed the room): a
    verified incumbent, a valid bound, the device FJ run, its share of the
-   root time, HiGHS under a 20 s limit beside it; after each solve, the
-   SpMVs and the SpMM (at the node batch size, 64) against their plain
-   versions on the scaled A and Aᵀ of the first BatchSolver it used, in
+   root time, HiGHS under a 10 s limit in a thread beside it; after each
+   solve, the SpMVs and the SpMM (at the node batch size, 64) against
+   their plain versions on the scaled A and Aᵀ of the first BatchSolver
+   it used, in
    f32 and f64; and the kernels' launches on the MIP path, with the
    counters set to 0 just before each solve and read just after.
 10. The front end (run before phase 8's lines): the bench LP written as
@@ -119,15 +121,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 12. The host front ends that reach the card through ``mip.solve`` (run
    before phase 8's lines): ``solve_bin_packing`` on Falkenauer's u120
    (120 sizes uniform in [20, 100] from seed 0, capacity 150; LB 49, FFD
-   50) under a 40 s limit, its assignment MIP sent to ``PdhgNodeBackend``
+   50) under a 10 s limit, its assignment MIP sent to ``PdhgNodeBackend``
    by the auto rule, the SpMV and the SpMM launched and held to their
    plain versions on the first BatchSolver's scaled A and Aᵀ, the device
    FJ's calls (none without a root incumbent: the B&B's gate), the
    packing checked (or ``None`` printed), HiGHS beside it;
-   ``solve_boolean_lp`` on edge_packing_300_s15 under a 40 s limit, its
-   incumbent checked in numpy and its bound valid against HiGHS's 20 s
-   incumbent (the two limits were 60 s, cut to 40 s to make room for
-   phase 16); ``IntegralSolver`` on gap_20x5_s10 and
+   ``solve_boolean_lp`` on edge_packing_300_s15 under a 10 s limit, its
+   incumbent checked in numpy and its bound valid against HiGHS's 10 s
+   incumbent (the limits were 60 s and 20 s, cut to 40 s to make room for
+   phase 16 and to 10 s for phase 17); ``IntegralSolver`` on gap_20x5_s10
+   and
    ``solve_vector_bin_packing`` on tests/test_scheduling_packing.py's
    three cases and u60 (LB 24, FFD 25, 1,194 arcs), OPTIMAL at milp's
    objective; ``minimize_max_hs`` on tests/test_max_hs.py's weighted
@@ -155,8 +158,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    just after.
 14. CP-SAT's portfolios, model I/O, the graph algorithms and routing (run
    before phase 8's lines), every solve on the card's default device:
-   ft10 under ``num_workers=8`` and a 20 s limit, interleaved and then
-   forked (``interleave_search=False``), each FEASIBLE or OPTIMAL with
+   ft10 under ``num_workers=8``, interleaved (20 s) and then forked
+   (``interleave_search=False``; 5 s, 20 s until phase 17 needed the
+   room), each FEASIBLE or OPTIMAL with
    930 <= makespan and bound <= 930 and the schedule checked; the
    shared-tree portfolio on a 0/1 knapsack (n 20) OPTIMAL at milp's
    optimum; each forked solve under a SIGALRM guard, with the workers
@@ -175,7 +179,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    HiGHS, ``christofides_tsp`` on 200 points within 1.5x the 1-tree
    bound; a 101-node CVRP (12 vehicles of 100) and a 101-node VRPTW of
    Solomon R1's shape (written as Solomon text, read by
-   ``parse_solomon``), each under GLS for 10 s with every visit,
+   ``parse_solomon``), each under GLS for 5 s (10 s until phase 17 needed
+   the room) with every visit,
    capacity and time window checked in numpy; a 10-node TSP under
    ``cp_sat_certification_share=0.5`` and ``solve_with_cp_sat`` at the
    brute-force optimum; ``schedule_route_with_breaks`` on
@@ -207,9 +212,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 16. The bench port (run before phase 8's lines), each script in a
    subprocess from the checkout with the kernels of phase 2: ``python -m
    ortools_tpu_torch bench`` (``bench_torch.py``), ``bench_large_torch.py``
-   and ``bench_miplib_torch.py 1.0 3``: the whole battery at scale 1.0
-   with a 3 s limit an instance and HiGHS under the same limit (a cut:
-   bench_miplib's default is 120 s; MIPLIB_LIMIT).  Each must exit 0 with
+   and ``bench_miplib_torch.py 0.25 1``: the whole battery (20 MIPs) at
+   scale 0.25 with a 1 s limit an instance and HiGHS under the same limit
+   (cuts: bench_miplib's defaults are scale 1.0 and 120 s; MIPLIB_SCALE
+   and MIPLIB_LIMIT, 1.0 and 3 s until phase 17 needed the room).  Each
+   must exit 0 with
    a JSON last line: the bench's every key of bench.py's ``_emit`` and the
    port's additions, its rates finite and positive, both benches naming
    the card; 20 instance records, each with its feasibility check run
@@ -218,10 +225,40 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    phase 5's for the same stream (the bench leaves out the statistics and
    the host's read) with their ratio; the scripts' launches, summed from
    their ``# launches`` lines, must each be above 0.
+17. The JAX package's last scripts (run before phase 8's lines), each in
+   a subprocess from the checkout with the kernels of phase 2, each exiting
+   0 with its JSON last line, every key present and every number finite:
+   ``scripts/bench_roofline_torch.py`` (y <- x(1 + 1e-9 i) + y over two
+   256 MiB f32 arrays, 1-256 steps a CUDA graph; the fitted in-graph rate
+   above 0 and at most 1.05 x 3,350 GB/s, printed beside phase 16's
+   ``device_stream_gbps``); ``bench_lp_suite_batch_torch.py`` (12 LPs
+   stacked block-diagonally, f32: PRIMAL_INFEASIBLE, as in the JAX
+   package, its blocks 10 and 11 being infeasible; each block checked
+   against HiGHS; the SpMVs against their plain versions on the stacked A
+   and Aᵀ); ``bench_onchip_search_torch.py --host-limit 5`` (the root and
+   128 warm-started node LPs of a 4,640 x 25,600 multicommodity LP at B =
+   64, all OPTIMAL; the SpMM against its plain version on that A and Aᵀ at
+   B = 64; the device FJ's cover on set_cover_250x100_s2 at or below
+   0.99 x the greedy cover's cost, checked in numpy; the host baselines
+   cut from 120 s to 5 s each, ``ONCHIP_HOST_LIMIT``);
+   ``bench_multichip_large_torch.py --mesh 2x2`` (the 1,036,800-nonzero
+   multicommodity LP in f64 at 1e-7: the 2x4 cell census equal to the JAX
+   package's, the single solve and the mesh solve on 4 gloo ranks sharing
+   the card (a cut: the script's default mesh is 2x4 on 8 ranks,
+   ``MULTICHIP_MESH``) both OPTIMAL within 1e-6 relative, the single
+   solve's peak
+   device memory; the SpMVs against their plain versions on that A and
+   Aᵀ).  Each script's launches, from its ``# launches`` line, must be
+   above 0 for the kernels it runs.  The host scripts
+   (``bench_inprocessing_torch.py``, ``bench_opb_torch.py``,
+   ``bench_routing_torch.py``, ``bench_scheduling_torch.py``) reach no
+   kernel (no model of theirs takes MaxHS, CP-SAT's one route to the
+   card): the CPU tests hold them (``tests/test_torch_scripts.py``).
 8. The ``kernels`` line (JSON, with each kernel's launches on the MIP
    path, on the front end, on the mesh path, on the host front ends, on
-   CP-SAT, on phase 14, on phase 15 and on phase 16 (``phase16_launches``,
-   the bench scripts' own), the SpMVs' errors after the forks,
+   CP-SAT, on phase 14, on phase 15, on phase 16 (``phase16_launches``,
+   the bench scripts' own) and on phase 17 (``phase17_launches``, the
+   scripts' own), the SpMVs' errors after the forks,
    and the fast SpMV's bf16 CSR yardstick), the total time,
    the card's name and power limit, and last ``{"ok": true, "device":
    {...}}``.
@@ -274,7 +311,8 @@ from ortools_tpu_torch.linear_solver import LinearExpr, Model, Solver
 from ortools_tpu_torch.mip import MipParams
 from ortools_tpu_torch.mip import branch_and_bound as bnb
 from ortools_tpu_torch.mip.node_lp import PdhgNodeBackend
-from ortools_tpu_torch.models.generators import block_random_lp
+from ortools_tpu_torch.models.generators import (block_random_lp,
+                                                 multicommodity_flow_lp)
 from ortools_tpu_torch.models.mip_generators import miplib_like_battery
 from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.models.lp_decomposer import decompose
@@ -1486,8 +1524,12 @@ PDHG_MIPS = ((1.0, "gap_20x5_s10", 60.0), (1.0, "set_cover_150x60_s1", 90.0),
              (1.0, "fixed_charge_60_s7", 180.0))
 # The instance that node_lp="auto" routes to the PDHG backend (m = 1,500)
 DEFAULT_MIP = "edge_packing_300_s15"
-DEFAULT_MIP_LIMIT = 60.0
-HIGHS_LIMIT = 20.0
+# 35 s (60 s before phase 17 needed the room); the root's
+# heuristics take a share of the limit, and the tree still sends node-LP
+# batches to the card after the root.  HiGHS's reference limit beside the
+# time-limited solves: 10 s (20 s before phase 17)
+DEFAULT_MIP_LIMIT = 35.0
+HIGHS_LIMIT = 10.0
 
 
 def battery(scale: float = 1.0) -> dict:
@@ -1780,12 +1822,13 @@ def default_mip(errs: dict, name=DEFAULT_MIP,
     beside it; then the kernels on its node-LP matrices.  Returns the
     launches."""
     qp = battery()[name]
-    ref, msg = highs_mip(qp, HIGHS_LIMIT)
-    with _CallLog() as log:
+    with ThreadPoolExecutor(1) as pool, _CallLog() as log:
+        highs = pool.submit(highs_mip, qp, HIGHS_LIMIT)
         t0 = time.perf_counter()
         r = mip.solve(qp, MipParams(time_limit_sec=limit))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        ref, msg = highs.result()
     cnt = log.counts()
     root_s, fj_share = _root_share(log, t0, dt)
     obj = r.objective_value
@@ -2573,9 +2616,10 @@ def gloo_ranks() -> dict:
 # Falkenauer's "u" class: integer sizes uniform in [20, 100] from
 # numpy.random.default_rng(seed), capacity 150
 U_CAPACITY, U_LOW, U_HIGH, U_SEED = 150, 20, 100, 0
-# u120's and the BOP portfolio's limits (U120, BOP_LIMIT): 40 s, so that
-# the whole run, phase 16 included, stays under 1,100 s
-U120 = dict(items=120, lower_bound=49, ffd=50, limit=40.0)
+# u120's and the BOP portfolio's limits (U120, BOP_LIMIT): 10 s, as
+# HiGHS's beside them, so that the whole run, phases 16 and 17 included,
+# stays under 1,100 s (60 s, then 40 s for phase 16, 10 s for phase 17)
+U120 = dict(items=120, lower_bound=49, ffd=50, limit=10.0)
 # the arc-flow case of the same class (LB 24, FFD 25, 1,194 arcs); u120 is
 # left out: solve_vector_bin_packing has no time limit (PERF.md §7)
 U_ARC_FLOW = dict(items=60, nodes=120, arcs=1194, bins=24)
@@ -2583,7 +2627,7 @@ U_ARC_FLOW = dict(items=60, nodes=120, arcs=1194, bins=24)
 ARC_FLOW_CASES = ((([10], [[6], [5], [4], [3], [2]], [1, 1, 1, 1, 1]), 2),
                   (([6], [[3]], [4]), 2),
                   (([5, 6], [[3, 1], [3, 5], [2, 4]], [1, 1, 1]), 2))
-BOP_MIP, BOP_LIMIT = "edge_packing_300_s15", 40.0
+BOP_MIP, BOP_LIMIT = "edge_packing_300_s15", 10.0
 INTEGRAL_MIP = "gap_20x5_s10"
 # tests/test_max_hs.py::weighted_maxsat_model's size and two of its seeds
 MAXSAT = dict(n=10, m=18, seeds=(0, 1))
@@ -2604,7 +2648,7 @@ def check_packing(sizes: list, capacity: int, bins: list,
 
 
 def assignment_packing(errs: dict) -> dict:
-    """(a) ``solve_bin_packing`` on u120 under a 40 s limit: the auto rule's
+    """(a) ``solve_bin_packing`` on u120 under U120's limit: the auto rule's
     backend, the SpMV and the SpMM launched and held to their plain
     versions on the first BatchSolver's scaled A and Aᵀ, the device FJ's
     calls and share of the root, the packing checked; HiGHS on the same
@@ -2663,8 +2707,8 @@ def assignment_packing(errs: dict) -> dict:
 
 
 def boolean_portfolio(errs: dict) -> dict:
-    """(b) ``solve_boolean_lp`` on BOP_MIP under a 40 s limit: the
-    incumbent checked in numpy, the bound valid against HiGHS's 20 s
+    """(b) ``solve_boolean_lp`` on BOP_MIP under a BOP_LIMIT limit: the
+    incumbent checked in numpy, the bound valid against HiGHS's HIGHS_LIMIT
     incumbent, the strategies' wins and the launches.  Returns them."""
     qp = battery()[BOP_MIP]
     with ThreadPoolExecutor(1) as pool, _CallLog() as log:
@@ -3184,8 +3228,14 @@ def cp_sat() -> dict:
 # ---------------------------------------------------------------------------
 
 PORTFOLIO_WORKERS = 8
-# The limits keep the whole run under 1,000 s (the instances stay whole)
-PORTFOLIO_LIMIT = 20.0
+# The limits keep the whole run under 1,100 s (the instances stay whole).
+# The interleaved portfolio keeps 20 s: it runs in this process, and when
+# its deadline lands in a restart's root propagation the TimeoutError
+# escapes solve_model, as in the JAX package (sat/solver.py's portfolio
+# path; it did at 5 s).  The forked one (its workers' errors stay in the
+# children) and routing were cut from 20 and 10 s to 5 s to make room for
+# phase 17.
+PORTFOLIO_LIMIT = {"interleaved": 20.0, "forked": 5.0}
 FORK_GUARD = 150.0  # wall-clock guard on each forked solve
 SHARED_TREE_KNAPSACK = dict(n=20, seed=5)
 DRAT_PIGEONS = 7  # into 6 holes
@@ -3196,7 +3246,7 @@ TSP_POINTS = dict(n=200, seed=0)
 CVRP = dict(nodes=101, vehicles=12, capacity=100, seed=0)
 VRPTW = dict(customers=100, vehicles=25, capacity=200, horizon=230,
              service=10, width=30, seed=0)
-ROUTING_LIMIT = 10.0
+ROUTING_LIMIT = 5.0
 CERT_TSP = dict(n=10, seed=3)
 
 
@@ -3285,15 +3335,16 @@ class _ForkWatch:
 
 
 def ft10_portfolio(interleave: bool) -> dict:
-    """ft10 under ``num_workers=8`` and a 20 s limit: FEASIBLE or OPTIMAL,
-    930 <= makespan, bound <= 930, the schedule checked in numpy."""
+    """ft10 under ``num_workers=8`` and its PORTFOLIO_LIMIT: FEASIBLE or
+    OPTIMAL, 930 <= makespan, bound <= 930, the schedule checked in
+    numpy."""
     jobs = parse_jssp(FT10.read_text())
     model, starts, makespan = jobshop_cp(jobs)
     kind = "interleaved" if interleave else "forked"
     label = f"ft10, {PORTFOLIO_WORKERS} workers, {kind}"
     params = dict(num_workers=PORTFOLIO_WORKERS,
                   interleave_search=interleave,
-                  max_time_in_seconds=PORTFOLIO_LIMIT)
+                  max_time_in_seconds=PORTFOLIO_LIMIT[kind])
     if interleave:
         out = cp_solve(label, model, params)
     else:
@@ -4319,15 +4370,18 @@ def slice13() -> dict:
 # 16. The bench port
 # ---------------------------------------------------------------------------
 
-# bench_miplib's default limit is 120 s an instance; 3 s is a cut, so that
-# the battery (20 instances, HiGHS under the same limit) fits the run.
-MIPLIB_LIMIT = 3.0
+# bench_miplib's defaults are scale 1.0 and 120 s an instance; scale 0.25
+# and 1 s are cuts, so that the battery (20 instances, HiGHS under the same
+# limit) fits the run (1.0 and 3 s until phase 17 needed the room).
+MIPLIB_SCALE = 0.25
+MIPLIB_LIMIT = 1.0
 BENCH_RUNS = (
     ("python -m ortools_tpu_torch bench", ["-m", "ortools_tpu_torch",
                                            "bench"], 420),
     ("bench_large_torch.py", ["bench_large_torch.py"], 300),
-    (f"bench_miplib_torch.py 1.0 {MIPLIB_LIMIT:g}",
-     ["bench_miplib_torch.py", "1.0", f"{MIPLIB_LIMIT:g}"], 420),
+    (f"bench_miplib_torch.py {MIPLIB_SCALE:g} {MIPLIB_LIMIT:g}",
+     ["bench_miplib_torch.py", f"{MIPLIB_SCALE:g}", f"{MIPLIB_LIMIT:g}"],
+     420),
 )
 # bench.py's _emit keys (bench.py:298-317) and the port's additions
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
@@ -4351,7 +4405,7 @@ def bench_script(label: str, args: list, timeout: float) -> tuple:
     """One bench script in a subprocess from the checkout (the kernels
     built in phase 2 are reused): exit 0 and a JSON last line required.
     Prints its seconds and its stderr lines that start with ``#``; returns
-    (the JSON object, its launches, seconds)."""
+    (the JSON object, its launches, seconds, those lines)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *args], cwd=str(ROOT), env=env,
@@ -4373,18 +4427,19 @@ def bench_script(label: str, args: list, timeout: float) -> tuple:
     launches = [json.loads(ln.split(":", 1)[1]) for ln in notes
                 if ln.startswith("# launches:")]
     require(len(launches) == 1, f"{label} printed no launch line")
-    return out, launches[0], dt
+    return out, launches[0], dt, notes
 
 
-def slice14(stream_s: dict) -> dict:
+def slice14(stream_s: dict) -> tuple:
     """Phase 16.  ``stream_s``: phase 5's seconds per major of each stream.
-    Returns the summed launches of the three scripts."""
+    Returns the summed launches of the three scripts and the bench's
+    ``device_stream_gbps``."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     name = torch.cuda.get_device_name(0)
     results, total = [], {}
     for label, args, timeout in BENCH_RUNS:
-        out, launches, _ = bench_script(label, args, timeout)
+        out, launches, _, _ = bench_script(label, args, timeout)
         results.append(out)
         _add(total, launches)
     bench, large, miplib = results
@@ -4426,7 +4481,8 @@ def slice14(stream_s: dict) -> dict:
                 == (r["status"] in ("OPTIMAL", "FEASIBLE"))
                 for r in records),
             "a bench_miplib record lacks its feasibility check")
-    print(f"bench_miplib at {MIPLIB_LIMIT:g} s an instance: matched "
+    print(f"bench_miplib at scale {MIPLIB_SCALE:g}, {MIPLIB_LIMIT:g} s an "
+          f"instance: matched "
           f"{miplib['value']} ({sum(r['matched'] for r in records)}/20), "
           f"{len(solved)} with a solution, "
           f"{sum(r['feasible'] is True for r in solved)} of them feasible; "
@@ -4437,6 +4493,232 @@ def slice14(stream_s: dict) -> dict:
             f"a kernel was not launched by the benches: {total}")
     print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches {total}",
           flush=True)
+    return total, rates["device_stream_gbps"]
+
+
+# ---------------------------------------------------------------------------
+# 17. The JAX package's last scripts
+# ---------------------------------------------------------------------------
+
+# bench_onchip_search's host baselines take 120 s each; 5 s is a cut, so
+# that phase 17 fits the run (the JAX script's host simplex ran 1 node in
+# its 120 s, its host FJ found no cover; at 10 s the port's ran 1 node and
+# found none either).
+ONCHIP_HOST_LIMIT = 5.0
+# The mesh of bench_multichip_large_torch.py's mesh solve: 2x2 on 4 gloo
+# ranks, a cut (the script's default is 2x4 on 8 ranks, 124 s on one card
+# against 104 s for 2x2: the ranks exchange the vectors' segments through
+# the host at every product); the census is taken at 2x4 whatever the mesh.
+MULTICHIP_MESH = "2x2"
+SCRIPT_RUNS = (
+    ("bench_roofline_torch.py", ["scripts/bench_roofline_torch.py"], 300),
+    ("bench_lp_suite_batch_torch.py",
+     ["scripts/bench_lp_suite_batch_torch.py"], 400),
+    (f"bench_onchip_search_torch.py --host-limit {ONCHIP_HOST_LIMIT:g}",
+     ["scripts/bench_onchip_search_torch.py", "--host-limit",
+      f"{ONCHIP_HOST_LIMIT:g}"], 600),
+    (f"bench_multichip_large_torch.py --mesh {MULTICHIP_MESH}",
+     ["scripts/bench_multichip_large_torch.py", "--mesh", MULTICHIP_MESH],
+     900),
+)
+# Each script's keys: the JAX script's (a key that names the TPU renamed)
+# and the port's two
+CARD_KEYS = ("device", "power_limit_w")
+ROOFLINE_KEYS = ("metric", "array_mib", "bytes_per_iteration", "samples",
+                 "fixed_overhead_ms", "per_iteration_us",
+                 "in_dispatch_gb_per_s", "single_dispatch_gb_per_s",
+                 "h100_peak_gb_per_s", "fraction_of_paper_peak",
+                 "devices") + CARD_KEYS
+LP_SUITE_KEYS = ("metric", "devices", "n_instances", "stacked_shape",
+                 "stacked_nnz", "status", "iterations", "batch_solve_sec",
+                 "verified_ok") + CARD_KEYS
+ONCHIP_KEYS = ("metric", "devices", "node_lp_pdhg",
+               "feasibility_jump") + CARD_KEYS
+NODE_LP_KEYS = ("instance", "n_vars", "n_rows", "n_nodes", "batch",
+                "root_solve_sec", "device_nodes_per_sec", "device_wall_sec",
+                "device_optimal", "device_infeasible", "host_backend",
+                "host_nodes_per_sec", "host_nodes_run", "host_optimal",
+                "speedup_vs_host")
+FJ_KEYS = ("instance", "greedy_cost", "cutoff", "device_found",
+           "device_cost", "device_sec", "device_moves_per_sec",
+           "device_seeds", "host_found", "host_cost", "host_sec",
+           "device_beats_host")
+MULTICHIP_KEYS = ("metric", "instance", "m", "n", "nnz", "mesh",
+                  "block_shape", "blocks_per_cell", "cell_padding_ratio",
+                  "single_device", "mesh_2d",
+                  "objective_rel_diff") + CARD_KEYS
+SOLVE_KEYS = ("status", "iterations", "objective", "sec")
+# The 2x4 cell census of the 1.04M-nonzero LP: it depends only on the
+# sparsity pattern and the padding (the JAX package's
+# artifacts/MULTICHIP_r05_large.json)
+CENSUS_2X4 = [17526, 17526, 3858, 0, 11153, 11153, 24821, 28679]
+ROOFLINE_SLACK = 1.05  # above 1.05 x the HBM rate a step did not stream
+ONCHIP_LP = dict(num_nodes=120, num_arcs=800, num_commodities=32, seed=1)
+MULTICHIP_LP = dict(num_nodes=200, num_arcs=2700, num_commodities=128,
+                    seed=3)
+
+
+def _lacks(obj: dict, keys) -> list:
+    return [k for k in keys if k not in obj]
+
+
+def _non_finite(obj, path: str = "") -> list:
+    """The paths of the numbers in ``obj`` that are not finite (None and
+    booleans are no numbers)."""
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items()
+                for p in _non_finite(v, f"{path}.{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj)
+                for p in _non_finite(v, f"{path}[{i}]")]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return [path]
+    return []
+
+
+def script_run(label: str, args: list, timeout: float, keys) -> tuple:
+    """``bench_script`` and the JSON's keys and numbers checked."""
+    out, launches, dt, notes = bench_script(label, args, timeout)
+    require(not _lacks(out, keys), f"{label}'s JSON lacks {_lacks(out, keys)}")
+    require(not _non_finite(out), f"{label}: numbers not finite: "
+            f"{_non_finite(out)}")
+    require(out["device"] == torch.cuda.get_device_name(0),
+            f"{label} names another device: {out['device']}")
+    return out, launches, dt, notes
+
+
+def roofline(stream_gbps: float) -> dict:
+    out, launches, dt, _ = script_run(*SCRIPT_RUNS[0], ROOFLINE_KEYS)
+    rate = out["in_dispatch_gb_per_s"]
+    peak = out["h100_peak_gb_per_s"]
+    print(f"roofline: in-graph {rate} GB/s ({out['fraction_of_paper_peak']}"
+          f" of {peak}), {out['per_iteration_us']} us a step, fixed "
+          f"{out['fixed_overhead_ms']} ms, one step alone "
+          f"{out['single_dispatch_gb_per_s']} GB/s; phase 16's "
+          f"device_stream_gbps {stream_gbps} (one 64-step graph, fixed "
+          f"cost included); samples {out['samples']}", flush=True)
+    require(peak == PEAK_BYTES_PER_S / 1e9,
+            f"the roofline's peak is {peak}, not the data sheet's")
+    require(0 < rate <= ROOFLINE_SLACK * peak,
+            f"the roofline's slope is {rate} GB/s: a step did not stream "
+            f"from HBM")
+    return launches
+
+
+def lp_suite(errs: dict) -> dict:
+    out, launches, dt, notes = script_run(*SCRIPT_RUNS[1], LP_SUITE_KEYS)
+    checked = [ln for ln in notes if "HiGHS status" in ln]
+    print(f"LP suite {out['stacked_shape']}, {out['stacked_nnz']} nonzeros:"
+          f" {out['status']} after {out['iterations']} iterations in "
+          f"{out['batch_solve_sec']} s; verified {out['verified_ok']}; "
+          f"{len(checked)} blocks checked against HiGHS", flush=True)
+    require(out["status"] == "PRIMAL_INFEASIBLE",
+            f"the LP suite ended {out['status']}, not PRIMAL_INFEASIBLE "
+            f"(blocks 10 and 11 are infeasible)")
+    require(len(checked) == out["n_instances"] == 12,
+            "a block of the LP suite was not checked against HiGHS")
+    require(launches["block_spmv_exact"] > 0,
+            "the LP suite launched no exact SpMV")
+    spec = importlib.util.spec_from_file_location(
+        "bench_lp_suite_batch_torch",
+        ROOT / "scripts" / "bench_lp_suite_batch_torch.py")
+    suite_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(suite_mod)
+    stack = suite_mod.stack([qp.as_minimization()
+                             for qp in suite_mod.build_suite()])
+    prob = pdlp_solver.build_device_problem(stack, suite_mod.params(),
+                                            "cuda")
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        check_matrix(f"LP suite stack {name}", mat.without_tiled(), errs)
+    return launches
+
+
+def onchip_search(errs: dict) -> dict:
+    out, launches, dt, notes = script_run(*SCRIPT_RUNS[2], ONCHIP_KEYS)
+    node, fj = out["node_lp_pdhg"], out["feasibility_jump"]
+    require(not _lacks(node, NODE_LP_KEYS) and not _lacks(fj, FJ_KEYS),
+            f"the on-chip search's JSON lacks {_lacks(node, NODE_LP_KEYS)}"
+            f" {_lacks(fj, FJ_KEYS)}")
+    print(f"node LPs ({node['n_rows']} x {node['n_vars']}): root "
+          f"{node['root_solve_sec']} s, {node['device_optimal']}/"
+          f"{node['n_nodes']} OPTIMAL at {node['device_nodes_per_sec']} "
+          f"nodes/s ({node['device_wall_sec']} s); host simplex "
+          f"{node['host_nodes_per_sec']} nodes/s ({node['host_nodes_run']} "
+          f"run, {node['host_optimal']} optimal, {ONCHIP_HOST_LIMIT:g} s)",
+          flush=True)
+    print(f"device FJ on {fj['instance']}: found {fj['device_found']}, cost "
+          f"{fj['device_cost']} (cutoff {fj['cutoff']}, greedy "
+          f"{fj['greedy_cost']}) in {fj['device_sec']} s, "
+          f"{fj['device_moves_per_sec']} moves/s; host FJ found "
+          f"{fj['host_found']} in {fj['host_sec']} s", flush=True)
+    require(node["device_optimal"] == node["n_nodes"] == 128,
+            f"{node['device_optimal']} of 128 node LPs OPTIMAL")
+    require(fj["device_found"] and fj["device_cost"] <= fj["cutoff"],
+            "the device FJ found no cover at or below the cutoff")
+    require(any(ln.startswith("# cover check: passed") for ln in notes),
+            "the device FJ's cover did not pass the numpy check")
+    require(launches[SPMM["name"]] > 0, "the node LPs launched no SpMM")
+    qp = multicommodity_flow_lp(**ONCHIP_LP)
+    prob = pdlp_solver.build_device_problem(
+        qp, PdhgParams(dtype=torch.float32, stream_precision="exact"),
+        "cuda")
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        check_spmm(f"on-chip search {name}", mat.without_tiled(), BATCH,
+                   errs)
+    return launches
+
+
+def multichip(errs: dict) -> dict:
+    out, launches, dt, notes = script_run(*SCRIPT_RUNS[3], MULTICHIP_KEYS)
+    one, mesh = out["single_device"], out["mesh_2d"]
+    require(not _lacks(one, SOLVE_KEYS) and not _lacks(mesh, SOLVE_KEYS),
+            "the multichip JSON lacks a solve's key")
+    print(f"multichip {out['instance']} ({out['m']} x {out['n']}, "
+          f"{out['nnz']} nonzeros): census {out['blocks_per_cell']} at "
+          f"{out['block_shape']}; single {one['status']} "
+          f"{one['iterations']} iterations {one['sec']} s; {out['mesh']} "
+          f"{mesh['status']} {mesh['iterations']} iterations {mesh['sec']} "
+          f"s; objectives {one['objective']!r} / {mesh['objective']!r} "
+          f"(rel {out['objective_rel_diff']:.2e})", flush=True)
+    require(out["blocks_per_cell"] == CENSUS_2X4,
+            f"the 2x4 census {out['blocks_per_cell']} is not {CENSUS_2X4}")
+    require(one["status"] == mesh["status"] == "OPTIMAL",
+            "a multichip solve did not end OPTIMAL")
+    require(out["objective_rel_diff"] <= 1e-6,
+            "the single and mesh objectives differ by more than 1e-6")
+    require(launches["block_spmv_exact"] > 0,
+            "the single f64 solve launched no exact SpMV")
+    require(any(ln.startswith("# single solve:") and "peak device memory"
+                in ln for ln in notes),
+            "the single solve printed no peak device memory")
+    t0 = time.perf_counter()
+    prob = pdlp_solver.build_device_problem(
+        multicommodity_flow_lp(**MULTICHIP_LP),
+        PdhgParams(dtype=torch.float64), "cuda")
+    print(f"the f64 problem built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        check_matrix(f"multichip {name}", mat.without_tiled(), errs)
+    return launches
+
+
+def slice15(stream_gbps: float) -> dict:
+    """Phase 17: the four device scripts of scripts/ in subprocesses, each
+    checked; their kernels against the plain versions on the scripts'
+    matrices.  Returns the launches summed from the scripts' ``#
+    launches`` lines."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    errs: dict = {}
+    total: dict = {}
+    _add(total, roofline(stream_gbps))
+    _add(total, lp_suite(errs))
+    _add(total, onchip_search(errs))
+    torch.cuda.empty_cache()
+    _add(total, multichip(errs))
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; launches {total}; "
+          f"largest errors {errs}", flush=True)
     return total
 
 
@@ -4552,8 +4834,13 @@ def main() -> int:
 
     phase("16. the bench port: python -m ortools_tpu_torch bench, "
           "bench_large_torch.py, bench_miplib_torch.py "
-          f"1.0 {MIPLIB_LIMIT:g}")
-    slice14_launches = slice14(major_s)
+          f"{MIPLIB_SCALE:g} {MIPLIB_LIMIT:g}")
+    slice14_launches, stream_gbps = slice14(major_s)
+
+    phase("17. the JAX package's last scripts: the HBM roofline, the LP "
+          "suite as one LP, on-chip search, the 1.04M-nonzero LP on one "
+          f"card and on a {MULTICHIP_MESH} mesh")
+    slice15_launches = slice15(stream_gbps)
 
     phase("8. kernels")
     kernels = []
@@ -4575,7 +4862,8 @@ def main() -> int:
             slice12_launches=slice12_launches[name],
             after_fork_max_abs_err=fork_errs[name],
             slice13_launches=slice13_launches[name],
-            phase16_launches=slice14_launches[name], ok=True))
+            phase16_launches=slice14_launches[name],
+            phase17_launches=slice15_launches[name], ok=True))
     a = spmm["A"]
     kernels.append(dict(
         name=SPMM["name"], route=SPMM["route"], source=SPMM["source"],
@@ -4592,7 +4880,8 @@ def main() -> int:
         cp_sat_launches=cp_launches[SPMM["name"]],
         slice12_launches=slice12_launches[SPMM["name"]],
         slice13_launches=slice13_launches[SPMM["name"]],
-        phase16_launches=slice14_launches[SPMM["name"]], ok=True))
+        phase16_launches=slice14_launches[SPMM["name"]],
+        phase17_launches=slice15_launches[SPMM["name"]], ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -73,6 +73,10 @@ def _rank_main(rank: int, n: int, init_method: str, backend: str,
     try:
         if device_type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
+            # the n ranks share the host's cores: an even share of torch's
+            # threads each (each rank starts with them all, and n pools
+            # spinning on the same cores slow every rank's host loop)
+            torch.set_num_threads(max(1, torch.get_num_threads() // n))
         else:
             # n ranks share the host's cores: one torch thread each
             torch.set_num_threads(1)

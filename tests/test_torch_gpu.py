@@ -780,3 +780,40 @@ def test_lp_file_solve_on_card_equals_the_solve_of_the_lp(cuda, tmp_path):
         r.primal_objective, r.dual_objective)
     np.testing.assert_array_equal(rr.primal_solution, r.primal_solution)
     np.testing.assert_array_equal(rr.dual_solution, r.dual_solution)
+
+
+@pytest.mark.gpu
+def test_roofline_step_is_one_kernel_on_card(cuda):
+    """``scripts/bench_roofline_torch.py``'s step, y ← x·(1 + 1e-9·i) + y,
+    launches one kernel on the card (``torch.profiler``), and a graph of
+    steps gives the eager steps' result bit for bit."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "bench_roofline_torch.py")
+    spec = importlib.util.spec_from_file_location("bench_roofline_torch",
+                                                  path)
+    roofline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(roofline)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(1 << 20, generator=gen).to(cuda)
+    y0 = torch.randn(1 << 20, generator=gen).to(cuda)
+    y = y0.clone()
+    roofline.step(x, y, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        roofline.step(x, y, 5)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
+    eager = y0.clone()
+    roofline.steps(x, eager, 16)
+    y = torch.empty_like(y0)
+    roofline.best_sec(x, y0, y, 16, reps=1)
+    assert torch.equal(y, eager)

@@ -55,7 +55,11 @@ PORT_FILES = sorted((ROOT / "ortools_tpu_torch").rglob("*.py")) + [
     ROOT / "scripts" / "torch_mesh_probe.py",
     ROOT / "scripts" / "torch_bench_probe.py", ROOT / "bench_torch.py",
     ROOT / "bench_large_torch.py", ROOT / "bench_miplib_torch.py"] + sorted(
-    (ROOT / "examples_torch").glob("*.py"))
+    (ROOT / "examples_torch").glob("*.py")) + [
+    ROOT / "scripts" / f"{name}_torch.py" for name in (
+        "bench_roofline", "bench_lp_suite_batch", "bench_onchip_search",
+        "bench_multichip_large", "bench_inprocessing", "bench_opb",
+        "bench_routing", "bench_scheduling", "repro_deadline")]
 
 
 def _imported_modules(path: Path):
@@ -229,6 +233,26 @@ def test_entry_points_raise_without_a_card(tmp_path, capsys):
     assert cli.main(["bench"]) == 2
     out = capsys.readouterr()
     assert "device='cpu'" in out.err and out.out == ""
+    # the scripts of scripts/: the four device scripts and the deadline
+    # probe run on the card only, and the host scripts that pass a device
+    # take the card unless --device cpu is given
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    for script in ("bench_roofline_torch", "bench_lp_suite_batch_torch",
+                   "bench_onchip_search_torch", "bench_multichip_large_torch",
+                   "repro_deadline_torch", "bench_opb_torch",
+                   "bench_routing_torch", "bench_scheduling_torch"):
+        mod = importlib.import_module(script)
+        with pytest.raises(SystemExit) as exc:
+            if script in ("bench_roofline_torch",
+                          "bench_lp_suite_batch_torch"):
+                mod.main()
+            else:
+                mod.main([])
+        assert exc.value.code == 2, script
+        out = capsys.readouterr()
+        assert "device='cpu'" in out.err and out.out == "", script
 
 
 def test_cdcl_library_builds_outside_the_source_tree():

@@ -156,3 +156,90 @@ def test_params_cache_key_matches_the_jax_package():
     assert {n: plain(tk[n]) for n in common} == {n: plain(jk[n])
                                                  for n in common}
     assert tk["dtype"] is torch.float32
+
+
+# ---------------------------------------------------------------------------
+# The scripts around the package
+# ---------------------------------------------------------------------------
+
+# Every script of the repo (at the root or under scripts/) that imports JAX
+# or the JAX package, with its counterparts in the port: (path, the functions it
+# defines or the options it takes that do the script's work).  The four
+# development probes are covered by tools that already do their work.
+SCRIPT_COUNTERPARTS = {
+    "__graft_entry__.py": [("ortools_tpu_torch/graft_entry.py",
+                            ("entry", "dryrun_multichip"))],
+    "bench.py": [("bench_torch.py", ("main",))],
+    "bench_large.py": [("bench_large_torch.py", ("main",))],
+    "bench_miplib.py": [("bench_miplib_torch.py", ("main",))],
+    "scripts/bench_roofline.py": [("scripts/bench_roofline_torch.py",
+                                   ("main", "fit"))],
+    "scripts/bench_lp_suite_batch.py": [(
+        "scripts/bench_lp_suite_batch_torch.py",
+        ("main", "build_suite", "verify"))],
+    "scripts/bench_onchip_search.py": [(
+        "scripts/bench_onchip_search_torch.py",
+        ("main", "bench_node_lps", "bench_device_fj"))],
+    "scripts/bench_multichip_large.py": [(
+        "scripts/bench_multichip_large_torch.py", ("main", "census"))],
+    "scripts/bench_inprocessing.py": [("scripts/bench_inprocessing_torch.py",
+                                       ("main", "php", "rand3sat"))],
+    "scripts/bench_opb.py": [("scripts/bench_opb_torch.py",
+                              ("main", "php_opb", "run"))],
+    "scripts/bench_routing.py": [("scripts/bench_routing_torch.py",
+                                  ("main", "seeded_vrptw",
+                                   "best_known_proxy"))],
+    "scripts/bench_scheduling.py": [("scripts/bench_scheduling_torch.py",
+                                     ("main", "seeded_instance",
+                                      "run_engine"))],
+    # a major's time by kernel, the SpMVs alone, attempts per iteration
+    "scripts/profile_major.py": [
+        ("chip_smoke.py", ("device_profile", "kernel_times")),
+        ("scripts/torch_bench_probe.py", ("block_rate",))],
+    # fast against exact kernels on the card, each stream's rate
+    "scripts/check_mixed.py": [
+        ("chip_smoke.py", ("kernels_against_plain", "stream_rates"))],
+    # battery instances through mip.solve, each against HiGHS
+    "scripts/probe_mip.py": [("scripts/torch_mip_probe.py",
+                              ("main", "--cases"))],
+    "scripts/repro_deadline.py": [("scripts/repro_deadline_torch.py",
+                                   ("main",))],
+}
+
+
+def _imports_jax(path: Path) -> bool:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        if any(n.split(".")[0] in ("jax", "ortools_tpu") for n in names):
+            return True
+    return False
+
+
+JAX_SCRIPTS = sorted(
+    str(p.relative_to(ROOT))
+    for p in sorted(ROOT.glob("*.py"))
+    + sorted((ROOT / "scripts").glob("*.py"))
+    if _imports_jax(p))
+
+
+def test_the_script_census_is_whole():
+    assert set(JAX_SCRIPTS) == set(SCRIPT_COUNTERPARTS)
+    assert len(JAX_SCRIPTS) == 16
+
+
+@pytest.mark.parametrize("rel", JAX_SCRIPTS)
+def test_every_jax_script_has_a_counterpart(rel):
+    assert rel in SCRIPT_COUNTERPARTS, f"{rel} has no counterpart"
+    for counterpart, names in SCRIPT_COUNTERPARTS[rel]:
+        path = ROOT / counterpart
+        assert path.is_file(), counterpart
+        assert not _imports_jax(path), counterpart
+        text = path.read_text()
+        defs = {node.name for node in ast.walk(ast.parse(text))
+                if isinstance(node, ast.FunctionDef)}
+        for name in names:
+            assert (name in text) if name.startswith("--") else (
+                name in defs), (counterpart, name)
