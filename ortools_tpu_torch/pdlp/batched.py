@@ -46,6 +46,7 @@ from ortools_tpu_torch.models.lp import QuadraticProgram
 from ortools_tpu_torch.pdlp import solver as S
 from ortools_tpu_torch.pdlp.params import PdhgParams, RestartStrategy
 from ortools_tpu_torch.utils.device import resolve_device
+from ortools_tpu_torch.utils.tracing import count, span
 
 
 @dataclasses.dataclass
@@ -174,7 +175,20 @@ class BatchSolver:
               iteration_limit: Optional[int] = None) -> BatchSolveResult:
         """``solve_batch``'s contract on this solver's problem.  The device
         code does not read the iteration limit, so a call may set its own
-        (``iteration_limit``; by default the solver's params')."""
+        (``iteration_limit``; by default the solver's params').
+
+        Counts, for ``utils/tracing.py``, at the call's end, so that a
+        batch's counts fall on one side of a profiler session's marks: the
+        instances open at each major (``batch_open`` of
+        ``batch_instances``), and every instance (``nodes_finished``) with
+        the iteration at which it ended: proven at a major, or at the
+        call's limit (``node_iterations``)."""
+        with span("batch_solve"):
+            return self._solve(var_lb_batch, var_ub_batch, warm_start_x,
+                               warm_start_y, deadline, iteration_limit)
+
+    def _solve(self, var_lb_batch, var_ub_batch, warm_start_x, warm_start_y,
+               deadline, iteration_limit) -> BatchSolveResult:
         params = self.params
         if iteration_limit is None:
             iteration_limit = params.iteration_limit
@@ -185,8 +199,11 @@ class BatchSolver:
             raise ValueError(
                 f"bounds must be [{self.batch_size}, {qp.num_variables}], "
                 f"got {var_lb_batch.shape} and {var_ub_batch.shape}")
-        self._start(var_lb_batch, var_ub_batch, warm_start_x, warm_start_y)
+        with span("batch_start"):
+            self._start(var_lb_batch, var_ub_batch, warm_start_x,
+                        warm_start_y)
         majors = self.majors
+        majors.returned = None  # the host loop is timed within a call
         device = self.device
         freq = params.termination_check_frequency
         norm_b, norm_c = self.norm_b, self.norm_c
@@ -216,6 +233,8 @@ class BatchSolver:
 
         iterations = 0
         done = np.zeros(bsz, dtype=bool)
+        ended_at = np.zeros(bsz, dtype=np.int64)  # iterations, once done
+        batch_open = batch_majors = 0  # counted at the end, with the nodes
         optimal = np.zeros(bsz, dtype=bool)
         primal_infeasible = np.zeros(bsz, dtype=bool)
         dual_infeasible = np.zeros(bsz, dtype=bool)
@@ -231,6 +250,8 @@ class BatchSolver:
         while iterations < iteration_limit and not done.all():
             if time.perf_counter() > deadline:
                 break
+            batch_open += int(bsz - done.sum())
+            batch_majors += 1
             stats, host = majors.major(False)
             iterations += freq
             cur, avg = host["current"], host["average"]
@@ -242,6 +263,7 @@ class BatchSolver:
             record(ok_cur, cur)
             record(ok_avg, avg)
             done |= ok_cur | ok_avg
+            ended_at[ok_cur | ok_avg] = iterations
             optimal |= ok_cur | ok_avg
             if done.all():
                 break
@@ -267,6 +289,7 @@ class BatchSolver:
                 primal_infeasible |= pinf
                 dual_infeasible |= dinf
                 done |= certified
+                ended_at[certified] = iterations
             if done.all():
                 break
             # restart decision per instance (host numpy)
@@ -310,15 +333,22 @@ class BatchSolver:
                 do_restart = np.zeros(bsz, dtype=bool)
             last_cand_kkt = cand
             if do_restart.any():
-                restarted = self._apply_restart(
-                    majors.prob, majors.state, on_device(use_avg),
-                    stats["x_avg"], stats["y_avg"])
-                majors.load(_select_state(on_device(do_restart), restarted,
-                                          majors.state))
+                with span("restart"):
+                    restarted = self._apply_restart(
+                        majors.prob, majors.state, on_device(use_avg),
+                        stats["x_avg"], stats["y_avg"])
+                    majors.load(_select_state(on_device(do_restart),
+                                              restarted, majors.state))
                 kkt_at_restart = np.where(do_restart, cand, kkt_at_restart)
                 last_cand_kkt = np.where(do_restart, np.inf, last_cand_kkt)
                 iters_at_restart = np.where(do_restart, iterations,
                                             iters_at_restart)
+
+        ended_at[~done] = iterations
+        count("batch_open", batch_open)
+        count("batch_instances", bsz * batch_majors)
+        count("nodes_finished", bsz)
+        count("node_iterations", int(ended_at.sum()))
 
         # Fill unfinished instances with their better candidate.
         unfilled = np.array([s is None for s in best_stats])

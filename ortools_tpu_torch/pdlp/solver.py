@@ -79,11 +79,13 @@ from ortools_tpu_torch.pdlp import trust_region
 from ortools_tpu_torch.pdlp.params import OptimalityNorm, PdhgParams, RestartStrategy
 from ortools_tpu_torch.utils.device import resolve_device
 from ortools_tpu_torch.utils.status import TerminationReason
+from ortools_tpu_torch.utils.tracing import count, span
 
 # Device-to-host reads made by the majors (one per major and its
 # statistics, one more for each round of extra slots a major needs) and
 # the host time spent blocked in them; the seconds spent capturing CUDA
-# graphs.  Plain counters that callers may reset and read.
+# graphs.  Plain counters that callers may reset and read; the others are
+# in ``utils/tracing.py``.
 host_syncs = 0
 host_sync_seconds = 0.0
 capture_seconds = 0.0
@@ -226,72 +228,79 @@ def build_device_problem(
     here, its shards do) and for the padded lengths to be multiples of
     ``row_pad_multiple`` and ``col_pad_multiple`` as well as of 128."""
     device = resolve_device(device)
-    qp = qp.as_minimization()
-    m, n = qp.num_constraints, qp.num_variables
-    a = sp.csr_matrix(qp.constraint_matrix).astype(np.float64)
-    if params.l_inf_ruiz_iterations > 0 or params.l2_norm_rescaling:
-        d_r, d_c = _ruiz_and_l2_rescale(
-            a, params.l_inf_ruiz_iterations, params.l2_norm_rescaling
-        )
-    else:
-        d_r, d_c = np.ones(m), np.ones(n)
-    a_scaled = sp.diags(d_r) @ a @ sp.diags(d_c)
+    with span("host_prep"):
+        count("problems_built")
+        qp = qp.as_minimization()
+        m, n = qp.num_constraints, qp.num_variables
+        a = sp.csr_matrix(qp.constraint_matrix).astype(np.float64)
+        t0 = time.perf_counter()
+        with span("rescale"):
+            if params.l_inf_ruiz_iterations > 0 or params.l2_norm_rescaling:
+                d_r, d_c = _ruiz_and_l2_rescale(
+                    a, params.l_inf_ruiz_iterations, params.l2_norm_rescaling
+                )
+            else:
+                d_r, d_c = np.ones(m), np.ones(n)
+            a_scaled = sp.diags(d_r) @ a @ sp.diags(d_c)
+        count("rescale_seconds", time.perf_counter() - t0)
 
-    block = params.block_shape or auto_block_shape(m, n, a.nnz)
-    dtype = params.dtype
-    # Both logical dims padded to multiples of 128 (and of the mesh's
-    # multiples), so A (M, N) and its block transpose (N, M) agree on
-    # padded vector lengths.
-    mm = -(-max(m, 1) // math.lcm(128, row_pad_multiple)) * math.lcm(
-        128, row_pad_multiple)
-    nn = -(-max(n, 1) // math.lcm(128, col_pad_multiple)) * math.lcm(
-        128, col_pad_multiple)
-    dev_a = BlockSparseMatrix.from_scipy(
-        a_scaled, block_shape=block, dtype=dtype,
-        pad_blocks_to_multiple_of=pad_blocks_to_multiple_of,
-        padded_shape=(mm, nn), device=device,
-    )
-    # Aᵀ as the per-block transpose of A at block shape (bn, bm): the same
-    # block count as A, so both SpMV passes stream the same bytes.
-    dev_at = dev_a.block_transpose()
-    if pad_blocks_to_multiple_of == 1:
-        dev_a = _attach_layout(dev_a, params, fast=True)
-        dev_at = _attach_layout(dev_at, params, fast=True)
+        block = params.block_shape or auto_block_shape(m, n, a.nnz)
+        dtype = params.dtype
+        # Both logical dims padded to multiples of 128 (and of the mesh's
+        # multiples), so A (M, N) and its block transpose (N, M) agree on
+        # padded vector lengths.
+        mm = -(-max(m, 1) // math.lcm(128, row_pad_multiple)) * math.lcm(
+            128, row_pad_multiple)
+        nn = -(-max(n, 1) // math.lcm(128, col_pad_multiple)) * math.lcm(
+            128, col_pad_multiple)
+        with span("layout"):
+            dev_a = BlockSparseMatrix.from_scipy(
+                a_scaled, block_shape=block, dtype=dtype,
+                pad_blocks_to_multiple_of=pad_blocks_to_multiple_of,
+                padded_shape=(mm, nn), device=device,
+            )
+            # Aᵀ as the per-block transpose of A at block shape (bn, bm): the
+            # same block count as A, so both SpMV passes stream the same bytes.
+            dev_at = dev_a.block_transpose()
+            if pad_blocks_to_multiple_of == 1:
+                dev_a = _attach_layout(dev_a, params, fast=True)
+                dev_at = _attach_layout(dev_at, params, fast=True)
 
-    def padv(v, fill, size):
-        out = np.full(size, fill, dtype=np.float64)
-        out[: len(v)] = v
-        return torch.as_tensor(out, dtype=dtype, device=device)
+        def padv(v, fill, size):
+            out = np.full(size, fill, dtype=np.float64)
+            out[: len(v)] = v
+            return torch.as_tensor(out, dtype=dtype, device=device)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+        def scalar(v):
+            return torch.tensor(v, dtype=dtype, device=device)
 
-    q = qp.objective_matrix_diagonal
-    q = np.zeros(n) if q is None else np.asarray(q, dtype=np.float64)
+        q = qp.objective_matrix_diagonal
+        q = np.zeros(n) if q is None else np.asarray(q, dtype=np.float64)
 
-    # Padded variables are fixed at 0 with zero cost; padded constraints are
-    # free ([-inf, inf]) so they never generate duals or residuals.
-    return DeviceProblem(
-        a=dev_a,
-        at=dev_at,
-        c=padv(qp.objective_vector * d_c, 0.0, nn),
-        q=padv(q * d_c * d_c, 0.0, nn),
-        var_lb=padv(qp.variable_lower / d_c, 0.0, nn),
-        var_ub=padv(qp.variable_upper / d_c, 0.0, nn),
-        con_lb=padv(qp.constraint_lower * d_r, -np.inf, mm),
-        con_ub=padv(qp.constraint_upper * d_r, np.inf, mm),
-        orig_c=padv(qp.objective_vector, 0.0, nn),
-        orig_q=padv(q, 0.0, nn),
-        orig_var_lb=padv(qp.variable_lower, 0.0, nn),
-        orig_var_ub=padv(qp.variable_upper, 0.0, nn),
-        orig_con_lb=padv(qp.constraint_lower, -np.inf, mm),
-        orig_con_ub=padv(qp.constraint_upper, np.inf, mm),
-        row_scale=padv(d_r, 1.0, mm),
-        col_scale=padv(d_c, 1.0, nn),
-        norm_b=scalar(_combined_bounds_norm(qp.constraint_lower,
-                                            qp.constraint_upper)),
-        norm_c=scalar(float(np.linalg.norm(qp.objective_vector))),
-    )
+        # Padded variables are fixed at 0 with zero cost; padded constraints
+        # are free ([-inf, inf]) so they never generate duals or residuals.
+        with span("upload"):
+            return DeviceProblem(
+                a=dev_a,
+                at=dev_at,
+                c=padv(qp.objective_vector * d_c, 0.0, nn),
+                q=padv(q * d_c * d_c, 0.0, nn),
+                var_lb=padv(qp.variable_lower / d_c, 0.0, nn),
+                var_ub=padv(qp.variable_upper / d_c, 0.0, nn),
+                con_lb=padv(qp.constraint_lower * d_r, -np.inf, mm),
+                con_ub=padv(qp.constraint_upper * d_r, np.inf, mm),
+                orig_c=padv(qp.objective_vector, 0.0, nn),
+                orig_q=padv(q, 0.0, nn),
+                orig_var_lb=padv(qp.variable_lower, 0.0, nn),
+                orig_var_ub=padv(qp.variable_upper, 0.0, nn),
+                orig_con_lb=padv(qp.constraint_lower, -np.inf, mm),
+                orig_con_ub=padv(qp.constraint_upper, np.inf, mm),
+                row_scale=padv(d_r, 1.0, mm),
+                col_scale=padv(d_c, 1.0, nn),
+                norm_b=scalar(_combined_bounds_norm(qp.constraint_lower,
+                                                    qp.constraint_upper)),
+                norm_c=scalar(float(np.linalg.norm(qp.objective_vector))),
+            )
 
 
 def _combined_bounds_norm(lo: np.ndarray, hi: np.ndarray) -> float:
@@ -388,12 +397,13 @@ def _make_power_iter(params: PdhgParams, psum=None):
 
     def power_iter(prob: DeviceProblem, v0: torch.Tensor) -> torch.Tensor:
         mv = _make_matvecs(prob.a, prob.at, psum)
-        v = v0 / vnorm(v0)
-        for _ in range(steps):
-            w = mv.rmatvec(mv.matvec(v))
-            # in place: w is the product's fresh output
-            v = w.div_(torch.clamp(vnorm(w), min=1e-30))
-        return torch.sqrt(vnorm(mv.rmatvec(mv.matvec(v))))
+        with span("power_iteration"):
+            v = v0 / vnorm(v0)
+            for _ in range(steps):
+                w = mv.rmatvec(mv.matvec(v))
+                # in place: w is the product's fresh output
+                v = w.div_(torch.clamp(vnorm(w), min=1e-30))
+            return torch.sqrt(vnorm(mv.rmatvec(mv.matvec(v))))
 
     return power_iter
 
@@ -851,10 +861,11 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     """``t`` on the host: one device-to-host copy, counted in
     ``host_syncs`` and timed in ``host_sync_seconds``."""
     global host_syncs, host_sync_seconds
-    host_syncs += 1
-    t0 = time.perf_counter()
-    out = t.cpu()
-    host_sync_seconds += time.perf_counter() - t0
+    with span("read"):
+        host_syncs += 1
+        t0 = time.perf_counter()
+        out = t.cpu()
+        host_sync_seconds += time.perf_counter() - t0
     return out
 
 
@@ -999,6 +1010,8 @@ class _Majors:
         self._fns: dict = {}
         self._graphs: dict = {}
         self._pool = None
+        # when the last major returned, in the caller's current call
+        self.returned: Optional[float] = None
 
     # -- buffers ----------------------------------------------------------
     @property
@@ -1068,7 +1081,10 @@ class _Majors:
         if (kind, fast) not in self._graphs:
             self._capture(fast)
         graph, out, launches = self._graphs[(kind, fast)]
-        graph.replay()
+        t0 = time.perf_counter()
+        with span("replay"):
+            graph.replay()
+        count("replay_seconds", time.perf_counter() - t0)
         tiled_spmv.count_launches(*launches)
         return out
 
@@ -1078,53 +1094,68 @@ class _Majors:
         (kernel modules load, cuBLAS takes its workspace, the projection
         vectors are drawn: nothing of that may happen inside a capture)."""
         global capture_seconds
-        t0 = time.perf_counter()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        stream = _capture_stream(self.prob.c.device)
-        slot, compute_stats = self._functions(fast)
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            scratch = _clone_slots(self.slots)
-            slot(self.prob, scratch)
-            compute_stats(self.prob, scratch.state)
-            del scratch
-        torch.cuda.current_stream().wait_stream(stream)
-        for kind in ("main", "tail", "stats"):
-            before = tiled_spmv.launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
-                out = getattr(self, "_" + kind)(fast)
-            launches = tuple(a - b for a, b in
-                             zip(tiled_spmv.launch_counts(), before))
-            tiled_spmv.count_launches(*(-n for n in launches))
-            self._graphs[(kind, fast)] = (graph, out, launches)
-        capture_seconds += time.perf_counter() - t0
+        with span("capture"):
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            stream = _capture_stream(self.prob.c.device)
+            slot, compute_stats = self._functions(fast)
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                scratch = _clone_slots(self.slots)
+                slot(self.prob, scratch)
+                compute_stats(self.prob, scratch.state)
+                del scratch
+            torch.cuda.current_stream().wait_stream(stream)
+            for kind in ("main", "tail", "stats"):
+                before = tiled_spmv.launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                    out = getattr(self, "_" + kind)(fast)
+                launches = tuple(a - b for a, b in
+                                 zip(tiled_spmv.launch_counts(), before))
+                tiled_spmv.count_launches(*(-n for n in launches))
+                self._graphs[(kind, fast)] = (graph, out, launches)
+            capture_seconds += time.perf_counter() - t0
 
     # -- majors -------------------------------------------------------------
     def major(self, fast: bool = False) -> Tuple[dict, dict]:
         """One major (``termination_check_frequency`` accepted iterations)
-        and its statistics: (device stats, host scalars)."""
-        self._run("main", fast)
-        slots_run = self.freq
-        while True:
-            stats, scalars = self._run("stats", fast)
-            host = _read_scalars(*scalars)
-            # a batch is done when its slowest instance is
-            done = int(np.min(host.pop("major_accepted")))
-            left = self.freq - done
-            if left <= 0:
-                return stats, host
-            need = min(left * self.max_attempts,
-                       -(-left * slots_run // max(done, 1)))
-            for _ in range(-(-need // self.tail_slots)):
-                self._run("tail", fast)
-                slots_run += self.tail_slots
+        and its statistics: (device stats, host scalars).  Counts the
+        major, its slots, its accepted iterations (each instance's, for a
+        batch) and the host's time since the last major returned in the
+        same call (``returned``; the caller clears it at a call's
+        start)."""
+        if self.returned is not None:
+            count("host_loop_seconds", time.perf_counter() - self.returned)
+        with span("major"):
+            self._run("main", fast)
+            slots_run = self.freq
+            while True:
+                stats, scalars = self._run("stats", fast)
+                host = _read_scalars(*scalars)
+                # a batch is done when its slowest instance is
+                done = int(np.min(host.pop("major_accepted")))
+                left = self.freq - done
+                if left <= 0:
+                    break
+                need = min(left * self.max_attempts,
+                           -(-left * slots_run // max(done, 1)))
+                for _ in range(-(-need // self.tail_slots)):
+                    self._run("tail", fast)
+                    slots_run += self.tail_slots
+        x = self.slots.state.x
+        count("majors")
+        count("slots", slots_run)
+        count("accepted", self.freq * (x.shape[0] if x.dim() == 2 else 1))
+        self.returned = time.perf_counter()
+        return stats, host
 
     def stats(self, fast: bool = False) -> Tuple[dict, dict]:
         """The statistics of the state in the buffers."""
-        stats, scalars = self._run("stats", fast)
-        host = _read_scalars(*scalars)
+        with span("major"):
+            stats, scalars = self._run("stats", fast)
+            host = _read_scalars(*scalars)
         host.pop("major_accepted")
         return stats, host
 
@@ -1461,6 +1492,11 @@ def solve(
     the ranks (see the module's docstring) on the mesh's device, and every
     rank returns the same result.
     """
+    with span("solve"):
+        return _solve(qp, params, device, v0, mesh)
+
+
+def _solve(qp, params, device, v0, mesh) -> SolveResult:
     params = params or PdhgParams()
     device = resolve_device(device)
     if mesh is not None:
@@ -1574,9 +1610,10 @@ def solve(
             if math.isinf(kkt_last):
                 kkt_last = cand
             elif cand <= params.sufficient_reduction_for_restart * kkt_last:
-                majors.load(apply_restart(
-                    majors.prob, majors.state, kkt_a <= kkt_c,
-                    stats_p["x_avg"], stats_p["y_avg"]))
+                with span("restart"):
+                    majors.load(apply_restart(
+                        majors.prob, majors.state, kkt_a <= kkt_c,
+                        stats_p["x_avg"], stats_p["y_avg"]))
                 kkt_last = cand
         return None
 
@@ -1711,7 +1748,8 @@ def solve(
         if (params.use_feasibility_polishing
                 and iterations >= next_polish):
             x_avg, y_avg = stats["x_avg"].clone(), stats["y_avg"].clone()
-            polished = _try_feasibility_polishing(x_avg, y_avg, avg)
+            with span("polish"):
+                polished = _try_feasibility_polishing(x_avg, y_avg, avg)
             next_polish *= 2
             if polished is not None:
                 reason = TerminationReason.OPTIMAL
@@ -1794,8 +1832,9 @@ def solve(
                 do_restart = suff or nec or long_interval
         last_candidate_kkt = cand_kkt
         if do_restart:
-            majors.load(apply_restart(prob, majors.state, use_avg,
-                                      stats["x_avg"], stats["y_avg"]))
+            with span("restart"):
+                majors.load(apply_restart(prob, majors.state, use_avg,
+                                          stats["x_avg"], stats["y_avg"]))
             kkt_at_last_restart = cand_kkt
             last_candidate_kkt = math.inf
             iters_at_last_restart = iterations
@@ -1825,16 +1864,18 @@ def solve(
                     majors.state.y.clone())
 
     which, bstats, x_dev, y_dev = best
-    # Unscale and unpad; recompute reduced costs for the reported iterate.
-    final = final_iterate(prob, x_dev, y_dev)
     n, m = qp.num_variables, qp.num_constraints
 
     def to_np(v, k):
         return v.to(torch.float64).cpu().numpy()[:k]
 
-    x = to_np(final["x"], n)
-    y = to_np(final["y"], m)
-    rc = to_np(final["reduced_costs"], n)
+    with span("final"):
+        # Unscale and unpad; recompute reduced costs for the reported
+        # iterate.
+        final = final_iterate(prob, x_dev, y_dev)
+        x = to_np(final["x"], n)
+        y = to_np(final["y"], m)
+        rc = to_np(final["reduced_costs"], n)
 
     pobj = sign * (bstats["primal_objective"] + qp_min.objective_constant)
     dobj = sign * (bstats["dual_objective"] + qp_min.objective_constant)

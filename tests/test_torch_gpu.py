@@ -398,6 +398,24 @@ def test_solve_on_card_reads_the_host_at_most_twice_a_major(cuda):
 
 
 @pytest.mark.gpu
+def test_graph_replays_are_counted_on_card(cuda):
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.utils import tracing
+
+    before = tracing.counters()
+    r = solve(block_random_lp(2048, 2048, 512, (8, 128), seed=1),
+              PdhgParams(block_shape=(8, 128), record_iteration_stats=True))
+    after = tracing.counters()
+    majors = after["majors"] - before.get("majors", 0)
+    assert majors == len(r.iteration_stats) > 0
+    assert after["replay_seconds"] > before.get("replay_seconds", 0.0)
+    slots = after["slots"] - before.get("slots", 0)
+    accepted = after["accepted"] - before.get("accepted", 0)
+    assert accepted == r.iterations <= slots
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kw", [
     dict(restart_strategy="ADAPTIVE_HEURISTIC"),
     dict(linesearch_rule="malitsky_pock"),
