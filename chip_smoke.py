@@ -21,9 +21,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (one block-row of 96 blocks, a quarter of the rest with one block, the
    others empty: both of the kernels' row variants in one launch) and an
    empty matrix; exact in f32 and f64, fast (bf16) in f32; each run twice,
-   bit-identical.
+   bit-identical.  The row kernel (``block_spmv_rows``, the 1-D product
+   over the row layout of a low-fill matrix) the same way, in f32 and f64,
+   on rows of every team width, empty and padded rows, rows longer than a
+   team's pass, one-row, one-column and empty matrices.
 4. ``pdlp.solve`` on moderate LPs (four seeds) to OPTIMAL, each held
-   against HiGHS.
+   against HiGHS; the SpMVs against their plain versions on the first
+   seed's matrices as the solve builds them (the row kernel, where they
+   take the row layout, as under the defaults).
 5. The main path at full width: ``pdlp.solve`` on the bench LP
    (block_random_lp 16384 x 16384, 4096 blocks of 8x128, seed 0, f32,
    default parameters) with an iteration limit, with the launch counters
@@ -37,7 +42,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    L2-warm time and, for the exact kernel, a block-sparse (BSR) product
    beside them; the launch floor (each kernel on a one-block matrix); and
    the kernels' times on the other block sizes of the same bytes (f64
-   bench A and A^T, f32 32x128 and 128x128 blocks) beside their bounds.
+   bench A and A^T, f32 32x128 and 128x128 blocks) beside their bounds;
+   and the row kernel on the benchmark's matrices (``ROW_CONFIGS``: the
+   flow LP of ``mcf.solve`` in f64 and the relaxation of
+   ``mcnd.nodes-b64`` in f32, A and Aᵀ as the solve scales them),
+   L2-cold and L2-warm, beside the block kernel on the same matrix, its
+   plain version, torch's CSR product, its bytes and their bound, and the
+   benchmark's roofline share; and both exact kernels on the same
+   matrices around the layout rule's boundary (``boundary_times``: 8x128
+   blocks at fills of 1/16 to 1/2 in three shapes, f32 and f64, A and
+   Aᵀ), each layout's bytes and time.
 6. The rest of the single-device solve: a moderate LP to OPTIMAL against
    HiGHS under ADAPTIVE_HEURISTIC restarts, the Malitsky-Pock linesearch,
    feasibility polishing and presolve (one solve each), and the bench LP
@@ -74,7 +88,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (60 s until phase 17 needed the room): a
    verified incumbent, a valid bound, the device FJ run, its share of the
    root time, HiGHS under a 10 s limit in a thread beside it; after each
-   solve, the SpMVs and the SpMM (at the node batch size, 64) against
+   solve, the SpMVs (the row kernel too, where the matrix has its row
+   layout) and the SpMM (at the node batch size, 64) against
    their plain versions on the scaled A and Aᵀ of the first BatchSolver
    it used, in
    f32 and f64; and the kernels' launches on the MIP path, with the
@@ -114,10 +129,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    within 1e-4·(1+|ref|) of HiGHS, every rank's result bit for bit rank
    0's and bit for bit one process's solve whose products sum in the
    mesh's order (``mesh_arithmetic_solve``), each rank's shard SpMVs
-   against their plain versions as in phase 3, and the iteration count
-   printed beside the single exact path's; the 2-D mesh again in f64, bit
-   for bit its one-process solve and within one major of the single exact
-   path's iteration count.
+   against their plain versions as in phase 3 (the row kernel too, where
+   a shard has its row layout), and the iteration count printed beside
+   the single exact path's; the 2-D mesh again in f64, bit for bit its
+   one-process solve and within a tenth of the single exact path's
+   iteration count (``F64_MESH_ITERATIONS``).
 12. The host front ends that reach the card through ``mip.solve`` (run
    before phase 8's lines): ``solve_bin_packing`` on Falkenauer's u120
    (120 sizes uniform in [20, 100] from seed 0, capacity 150; LB 49, FFD
@@ -396,6 +412,27 @@ SPMM = dict(
     source="ortools_tpu_torch/ops/csrc/block_spmm.cu",
     replaces="ortools_tpu/ops/block_sparse.py:285",
     wrapper=tiled_spmv.tiled_matmat, plain=tiled_spmv.tiled_matmat_plain)
+# The 1-D product over the row layout of a low-fill matrix: no TPU kernel
+# and no XLA code of the JAX package matches it (the TPU stores blocks).
+ROWS = dict(
+    name="block_spmv_rows", route="cuda",
+    source="ortools_tpu_torch/ops/csrc/block_spmv.cu",
+    replaces="none: the row layout's 1-D product, for low-fill matrices",
+    wrapper=tiled_spmv.rows_matvec, plain=tiled_spmv.rows_matvec_plain)
+# The benchmark's configurations whose matrices take the row layout
+# (benchmark/configs; their instance 0, made by the benchmark's generator).
+ROW_CONFIGS = (("mcf.solve", "mcnd-c-30-700-400-open-f64", torch.float64),
+               ("mcnd.nodes-b64", "mcnd-c-30-520-100-relax-f32",
+                torch.float32))
+# The layout rule's boundary (tiled_spmv.prefer_rows): matrices of 8x128
+# blocks whose entries are nonzero with probability BOUNDARY_FILLS, around
+# where the row layout reads half the blocks' bytes (a fill of 1/3 in f64,
+# 1/4 in f32), 8,192 blocks each: one block a block-row on 128 block
+# columns (A's rows of 128·fill nonzeros, as the flow LP's), four, and 64
+# on 8,192 block columns (Aᵀ's rows of 8·fill, as the flow LP's Aᵀ).
+BOUNDARY_FILLS = (1 / 16, 1 / 8, 1 / 4, 1 / 3, 1 / 2)
+# block rows, blocks in each, block columns
+BOUNDARY_SHAPES = ((8192, 1, 128), (2048, 4, 128), (128, 64, 8192))
 BATCH = 64  # bench.py's batched configuration (bench.py:255-293)
 BATCH_MAJORS = 8
 MODERATE_BATCH = 8
@@ -419,7 +456,7 @@ def phase(title: str) -> None:
 
 
 def reset_counters() -> None:
-    for k in list(KERNELS.values()) + [SPMM]:
+    for k in list(KERNELS.values()) + [SPMM, ROWS]:
         k["wrapper"].launches = 0
 
 
@@ -427,7 +464,15 @@ def _launches() -> dict:
     """Each kernel's launch count since ``reset_counters``."""
     out = {k: v["wrapper"].launches for k, v in KERNELS.items()}
     out[SPMM["name"]] = SPMM["wrapper"].launches
+    out[ROWS["name"]] = ROWS["wrapper"].launches
     return out
+
+
+def exact_spmvs(launches: dict) -> int:
+    """The exact 1-D products among ``launches``: the block kernel's and
+    the row kernel's (a low-fill matrix takes the second)."""
+    return (launches.get("block_spmv_exact", 0)
+            + launches.get(ROWS["name"], 0))
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +642,247 @@ def kernels_against_plain(bench_prob) -> dict:
                                          device="cuda")
     check_matrix("empty 50x60 (8x128)", empty, errs)
     check_matrix("empty^T (128x8)", empty.block_transpose(), errs)
+    errs.update(rows_against_plain())
     return errs
+
+
+def check_rows(label: str, csr, shape, errs: dict) -> None:
+    """The row kernel against its plain version on the row layout of
+    ``csr`` padded to ``shape``, in f32 and f64, each run twice and
+    bit-identical; records the largest error."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        lay = tiled_spmv.make_row_layout(csr, shape[0], shape[1], dtype,
+                                         "cuda")
+        g = torch.Generator(device="cpu").manual_seed(4)
+        x = torch.randn(shape[1], generator=g, dtype=torch.float64).to(
+            dtype=dtype, device=lay.values.device)
+        y, y2 = ROWS["wrapper"](lay, x), ROWS["wrapper"](lay, x)
+        ref = ROWS["plain"](lay, x)
+        torch.cuda.synchronize()
+        err, scale = _rel_err(y, ref)
+        print(f"{label:34s} rows {lay.bin_rows} {str(dtype)[6:]}: "
+              f"{err:.3e} (<= {tol * scale:.3e})", flush=True)
+        require(err <= tol * scale, f"{label}: the row kernel disagrees "
+                f"with its plain version in {dtype}")
+        require(torch.equal(y, y2), f"{label}: a repeated launch of the "
+                f"row kernel is not bit-identical")
+        errs[ROWS["name"]] = max(errs.get(ROWS["name"], 0.0), err)
+
+
+def check_built(label: str, mat: BlockSparseMatrix, errs: dict) -> None:
+    """The SpMVs of a built problem's matrix against their plain versions:
+    the block kernels on its blocks, and the row kernel on its nonzeros
+    where set-up gave it the row layout (its 1-D products then run there
+    alone)."""
+    check_matrix(label, mat.without_tiled(), errs)
+    if mat.rows is not None:
+        check_rows(label, mat.to_csr(), mat.padded_shape, errs)
+
+
+def _fold(into: dict, errs: dict) -> None:
+    for name, e in errs.items():
+        into[name] = max(into.get(name, 0.0), e)
+
+
+def rows_against_plain() -> dict:
+    """The row kernel on matrices of every team width and on the edges:
+    rows empty, padded, longer than a team's pass, and one-row, one-column
+    and empty matrices."""
+    errs: dict = {}
+    rng = np.random.default_rng(5)
+    lengths = np.concatenate([[900, 129, 128], rng.integers(0, 70, 297),
+                              np.zeros(100, np.int64)])
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    cols = np.concatenate([rng.choice(1000, k, replace=False)
+                           for k in lengths])
+    skewed = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                           shape=(lengths.size, 1000))
+    for label, a in (("rows 400x1000 (900..0 nonzeros)", skewed),
+                     ("rows^T 1000x400", skewed.T.tocsr()),
+                     ("rows one row 1x1000", sp.random(
+                         1, 1000, density=0.9, random_state=1, format="csr")),
+                     ("rows one column 1000x1", sp.random(
+                         1000, 1, density=0.9, random_state=2,
+                         format="csr")),
+                     ("rows empty 50x60", sp.csr_matrix((50, 60)))):
+        shape = tuple(-(-max(d, 1) // 128) * 128 for d in a.shape)
+        check_rows(label, a, shape, errs)
+    return errs
+
+
+def benchmark_qp(config: str):
+    """Instance 0 of a configuration of the benchmark (``benchmark/``),
+    made by its generator, as the program's QuadraticProgram."""
+    bench_dir = ROOT / "benchmark"
+    if str(bench_dir) not in sys.path:
+        sys.path.insert(0, str(bench_dir))
+    from lpbench import instances
+
+    cfg = json.loads((bench_dir / "configs" / f"{config}.json").read_text())
+    return instances.to_program(instances.make_instance(bench_dir, cfg, 0))
+
+
+def _row_cold_copies(lay) -> list:
+    """Copies of the row layout, enough that their bytes cycled over
+    exceed L2 twice."""
+    nbytes = sum(t.nbytes for t in (lay.values, lay.cols, lay.row_ptr,
+                                    lay.order))
+    return [lay._replace(values=lay.values.clone(), cols=lay.cols.clone(),
+                         row_ptr=lay.row_ptr.clone(), order=lay.order.clone())
+            for _ in range(1 + (2 * L2_BYTES) // max(1, nbytes))]
+
+
+def row_times() -> dict:
+    """The row kernel on the benchmark's matrices (A and Aᵀ of
+    ``ROW_CONFIGS``, scaled as the solve scales them), L2-cold: its time
+    against its plain version (held to it first), the block kernel on the
+    same matrix, torch's CSR product (cuSPARSE, the library yardstick; the
+    port never calls it), its bytes a launch and their bound, and the
+    share of the benchmark's roofline (work nnz·s + (m + n)·s)."""
+    out = {}
+    for cell, config, dtype in ROW_CONFIGS:
+        qp = benchmark_qp(config)
+        prob = pdlp_solver.build_device_problem(
+            qp, PdhgParams(dtype=dtype), "cuda")
+        s = torch.tensor([], dtype=dtype).element_size()
+        work = (qp.constraint_matrix.nnz * s
+                + (qp.num_constraints + qp.num_variables) * s)
+        for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+            label = f"{cell} {orient}"
+            lay = mat.rows
+            require(lay is not None, f"{label}: no row layout attached")
+            x = _x_for(mat, dtype, 6)
+            y = ROWS["wrapper"](lay, x)
+            ref = ROWS["plain"](lay, x)
+            blk = tiled_spmv.tiled_matvec(mat.tiled, x)
+            torch.cuda.synchronize()
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            err, scale = _rel_err(y, ref)
+            berr, _ = _rel_err(y, blk)
+            require(err <= tol * scale and berr <= tol * scale,
+                    f"{label}: the row kernel disagrees ({err:.3e} from its "
+                    f"plain version, {berr:.3e} from the block kernel)")
+            lays = _row_cold_copies(lay)
+            args = [(t, x) for t in lays]
+            ms = time_launches(ROWS["wrapper"], args, 400)
+            warm_ms = time_launches(ROWS["wrapper"], args[:1], 400)
+            plain_ms = time_launches(ROWS["plain"], args[:2], 20)
+            blocks = _cold_copies(mat.tiled)
+            block_ms = time_launches(tiled_spmv.tiled_matvec,
+                                     [(t, x) for t in blocks], 100)
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="Sparse")
+                csrs = [torch.sparse_csr_tensor(t.row_ptr, t.cols, t.values,
+                                                size=mat.padded_shape)
+                        for t in lays]
+                library_ms = time_launches(lambda a, v: a @ v,
+                                           [(c, x) for c in csrs], 200)
+            m, n = mat.padded_shape
+            nbytes = (lay.nnz * (s + 4) + (m + 1) * 4 + m * 4 + (m + n) * s)
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            share = work / PEAK_BYTES_PER_S * 1e3 / ms
+            print(f"{label:20s} {lay.nnz} nonzeros, bins {lay.bin_rows}: "
+                  f"row kernel {ms:.4f} ms (L2-warm {warm_ms:.4f}), bound "
+                  f"{bound_ms:.4f} ms ({nbytes} bytes; {bound_ms / ms:.1%});"
+                  f" roofline share {share:.1%}; block kernel {block_ms:.4f}"
+                  f" ms ({mat.num_blocks} blocks of {mat.block_shape}); "
+                  f"plain {plain_ms:.4f} ms; torch CSR {library_ms:.4f} ms; "
+                  f"error {err:.3e}", flush=True)
+            out[label] = dict(ms=ms, warm_ms=warm_ms, bound_ms=bound_ms,
+                              bytes=nbytes, roofline_share=share,
+                              block_ms=block_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, max_abs_err=err)
+            del lays, blocks, csrs
+        del prob
+        torch.cuda.empty_cache()
+    return out
+
+
+def boundary_matrix(block_rows: int, per_row: int, gn: int, fill: float,
+                    seed: int) -> sp.csr_matrix:
+    """``block_rows`` x ``gn`` blocks of 8x128, ``per_row`` of them stored
+    in each block-row at random columns, each of their entries nonzero
+    with probability ``fill``."""
+    rng = np.random.default_rng(seed)
+    bm, bn = 8, 128
+    brows = np.repeat(np.arange(block_rows), per_row)
+    bcols = np.argsort(rng.random((block_rows, gn)), axis=1)[:, :per_row]
+    b, i, j = np.nonzero(rng.random((brows.size, bm, bn)) < fill)
+    return sp.csr_matrix(
+        (rng.standard_normal(b.size),
+         (brows[b] * bm + i, bcols.ravel()[b] * bn + j)),
+        shape=(block_rows * bm, gn * bn))
+
+
+def boundary_times() -> dict:
+    """Both exact kernels on the same matrices around the layout rule's
+    boundary (``BOUNDARY_SHAPES`` x ``BOUNDARY_FILLS``, A and Aᵀ, f32 and
+    f64), L2-cold, the row kernel held to its plain version and to the
+    block kernel first: each layout's bytes a product (the rule's count:
+    values and column indices of the nonzeros and the row pointers, against
+    every stored entry), their ratio, the kernels' times and theirs, and
+    whether the rule gives rows; in f32 the block kernel's bf16 stream
+    too, which the block route adds where it keeps the blocks."""
+    out = {}
+    for block_rows, per_row, gn in BOUNDARY_SHAPES:
+        for fill in BOUNDARY_FILLS:
+            a = boundary_matrix(block_rows, per_row, gn, fill, seed=7)
+            for dtype in (torch.float32, torch.float64):
+                s = torch.tensor([], dtype=dtype).element_size()
+                for orient, csr, shape in (("A", a, (8, 128)),
+                                           ("A^T", a.T.tocsr(), (128, 8))):
+                    label = (f"{block_rows}x{per_row}/{gn} fill {fill:.3f}"
+                             f" {str(dtype)[6:]} {orient}")
+                    mat = BlockSparseMatrix.from_scipy(
+                        csr, block_shape=shape, dtype=dtype,
+                        device="cuda").with_tiled(hi=dtype == torch.float32)
+                    lay = tiled_spmv.make_row_layout(
+                        csr, *mat.padded_shape, dtype, "cuda")
+                    x = _x_for(mat, dtype, 8)
+                    y = ROWS["wrapper"](lay, x)
+                    ref = ROWS["plain"](lay, x)
+                    blk = tiled_spmv.tiled_matvec(mat.tiled, x)
+                    torch.cuda.synchronize()
+                    tol = 1e-12 if dtype == torch.float64 else 1e-5
+                    err, scale = _rel_err(y, ref)
+                    berr, _ = _rel_err(y, blk)
+                    require(err <= tol * scale and berr <= tol * scale,
+                            f"{label}: the row kernel disagrees ({err:.3e} "
+                            f"from its plain version, {berr:.3e} from the "
+                            f"block kernel)")
+                    # each the least of two timings: a few µs a launch,
+                    # and the clocks may still be rising in the first
+                    lays = [(t, x) for t in _row_cold_copies(lay)]
+                    blocks = [(t, x) for t in _cold_copies(mat.tiled)]
+                    rows_ms = min(time_launches(ROWS["wrapper"], lays, 200)
+                                  for _ in range(2))
+                    block_ms = min(time_launches(tiled_spmv.tiled_matvec,
+                                                 blocks, 200)
+                                   for _ in range(2))
+                    fast_ms = (min(time_launches(
+                        tiled_spmv.tiled_matvec_fast, blocks, 200)
+                        for _ in range(2))
+                        if dtype == torch.float32 else None)
+                    bm, bn = shape
+                    row_bytes = lay.nnz * (s + 4) + 4 * (lay.num_rows + 1)
+                    block_bytes = mat.num_blocks * bm * bn * s
+                    rule = tiled_spmv.prefer_rows(
+                        lay.nnz, lay.num_rows, mat.num_blocks, shape, s)
+                    fast = ("" if fast_ms is None
+                            else f", bf16 stream {fast_ms:.4f} ms")
+                    print(f"{label:34s} bytes rows/blocks {row_bytes}/"
+                          f"{block_bytes} = {row_bytes / block_bytes:.3f};"
+                          f" row kernel {rows_ms:.4f} ms, block kernel "
+                          f"{block_ms:.4f} ms{fast}: time rows/blocks "
+                          f"{rows_ms / block_ms:.3f}; the rule gives "
+                          f"{'rows' if rule else 'blocks'}", flush=True)
+                    out[label] = dict(
+                        row_bytes=row_bytes, block_bytes=block_bytes,
+                        rows_ms=rows_ms, block_ms=block_ms, fast_ms=fast_ms,
+                        rule_rows=rule, max_abs_err=err)
+                    del mat, lay, lays, blocks
+            torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -636,18 +921,20 @@ def moderate_refs(seeds) -> dict:
     return {s: _MODERATE_REFS[s] for s in seeds}
 
 
-def moderate_solve(seeds=MODERATE_SEEDS) -> None:
+def moderate_solve(seeds=MODERATE_SEEDS, errs: dict = None) -> None:
     """Each seed's moderate LP to OPTIMAL with default parameters: the
     iterations and time to tolerance, held against HiGHS.  Several seeds,
     because one LP's count moves by majors under a change of summation
-    order."""
+    order.  Then the SpMVs against their plain versions on the first
+    seed's scaled matrices as the solve built them (largest errors into
+    ``errs``, where given)."""
     refs = moderate_refs(seeds)
     for seed in seeds:
         qp = block_random_lp(**MODERATE, seed=seed)
         ref = refs[seed]
         reset_counters()
         r = solve(qp, PdhgParams(record_iteration_stats=True))
-        launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+        launches = _launches()
         streams = [rec["stream"] for rec in r.iteration_stats]
         rel = abs(r.primal_objective - ref) / (1 + abs(ref))
         print(f"moderate LP {MODERATE} seed {seed}: "
@@ -660,8 +947,15 @@ def moderate_solve(seeds=MODERATE_SEEDS) -> None:
                 f"moderate LP seed {seed} did not reach OPTIMAL")
         require(rel <= 1e-4,
                 f"moderate LP seed {seed} objective disagrees with HiGHS")
-        require(all(v > 0 for v in launches.values()),
+        require(exact_spmvs(launches) > 0
+                and (launches["block_spmv_fast"] > 0) == ("fast" in streams),
                 f"a kernel was not launched by the moderate solve: {launches}")
+    prob = pdlp_solver.build_device_problem(
+        block_random_lp(**MODERATE, seed=seeds[0]), PdhgParams(), "cuda")
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        bm, bn = mat.block_shape
+        check_built(f"moderate LP seed {seeds[0]} {name} ({bm}x{bn})", mat,
+                    {} if errs is None else errs)
 
 
 # ---------------------------------------------------------------------------
@@ -1123,7 +1417,7 @@ def _counted_solve(qp, params):
     reset_counters()
     r = solve(qp, params)
     torch.cuda.synchronize()
-    launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
+    launches = _launches()
     streams = [rec["stream"] for rec in r.iteration_stats]
     extra = pdlp_solver.host_syncs - len(streams)
     print(f"  {r.termination_reason.name} in {r.iterations} iterations, "
@@ -1131,7 +1425,8 @@ def _counted_solve(qp, params):
           f"exact {streams.count('exact')}; host syncs "
           f"{pdlp_solver.host_syncs} ({extra} beyond one a major); "
           f"launches {launches}", flush=True)
-    require(all(v > 0 for v in launches.values()),
+    require(exact_spmvs(launches) > 0
+            and (launches["block_spmv_fast"] > 0) == ("fast" in streams),
             f"a kernel was not launched: {launches}")
     return r, extra
 
@@ -1749,7 +2044,7 @@ def node_lp_kernels(name: str, prob, errs: dict) -> None:
         bm, bn = mat.block_shape
         plain = mat.without_tiled()
         tag = f"{name} {label} ({bm}x{bn})"
-        check_matrix(tag, plain, errs)
+        check_built(tag, mat, errs)
         check_spmm(tag, plain, MipParams().node_batch_size, errs)
 
 
@@ -1871,8 +2166,7 @@ def mip_path(errs: dict) -> dict:
     launches = pdhg_mips(errs)
     _add(launches, default_mip(errs))
     print(f"launches on the MIP path: {launches}", flush=True)
-    require(launches["block_spmv_exact"] > 0
-            and launches[SPMM["name"]] > 0,
+    require(exact_spmvs(launches) > 0 and launches[SPMM["name"]] > 0,
             f"a kernel of the MIP path was not launched: {launches}")
     return launches
 
@@ -2421,6 +2715,18 @@ def mesh_rates(bench_qp, params, meshes) -> None:
               f"other device work", flush=True)
 
 
+# How far the f64 2-D mesh's iteration count may lie from the single exact
+# path's, as a share of it.  Restarted PDHG's count in f64 moves by whole
+# majors with the order of each product's sums, which every layout and
+# mesh fixes in its own way: on moderate LP seed 1 the single path alone
+# reads 4,288 to 4,480 iterations (4.5%) under the row kernel's team
+# rules, 4,352 under the block kernel and 4,288 under the plain products
+# on the CPU.  A tenth leaves twice that spread; the objective and the
+# bit-for-bit match with the one-process solve are what hold the mesh's
+# arithmetic.
+F64_MESH_ITERATIONS = 0.1
+
+
 def _gloo_rank(shape, names) -> dict:
     """One gloo rank of phase 11b, on the card it shares: the moderate LP
     in f32 through ``solve(mesh=...)`` (launch counters set to 0 just
@@ -2439,7 +2745,7 @@ def _gloo_rank(shape, names) -> dict:
     errs: dict = {}
     rank = tuple(mesh.coords)
     for label, mat in (("A", prob.a), ("A^T", prob.at)):
-        check_matrix(f"rank {rank} shard {label}", mat.without_tiled(), errs)
+        check_built(f"rank {rank} shard {label}", mat, errs)
     r64 = (solve(qp, PdhgParams(dtype=torch.float64), mesh=mesh)
            if len(shape) == 2 else None)
     return dict(result=r, launches=launches, errs=errs, result64=r64)
@@ -2520,9 +2826,9 @@ def gloo_ranks() -> dict:
     order of summation in every product), every shard's SpMVs within
     phase 3's tolerances of their plain versions; the iteration count is
     printed beside the single exact path's.  In f64 (2-D): bit for bit
-    its one-process solve too, and within one major (one termination
-    test) of the single exact path's count.  Returns the kernels' largest
-    shard errors."""
+    its one-process solve too, its objective within 1e-6 of the single
+    exact path's, and its count within ``F64_MESH_ITERATIONS`` of that
+    path's.  Returns the kernels' largest shard errors."""
     from ortools_tpu_torch import graft_entry
 
     ref = moderate_refs([MESH_SEED])[MESH_SEED]
@@ -2575,7 +2881,7 @@ def gloo_ranks() -> dict:
         require(alike, f"mesh {shape}: the ranks' results differ")
         require(same, f"mesh {shape}: the result differs from the one-"
                 f"process solve with the mesh's order of summation")
-        require(all(k["launches"]["block_spmv_exact"] > 0 for k in ranks),
+        require(all(exact_spmvs(k["launches"]) > 0 for k in ranks),
                 f"mesh {shape}: a rank launched no exact SpMV")
         r64 = ranks[0]["result64"]
         if r64 is not None:
@@ -2589,15 +2895,14 @@ def gloo_ranks() -> dict:
                   f"objective rel to the single path {rel64:.2e}; ranks "
                   f"bit-identical: {alike64}; bit for bit the one-process "
                   f"solve with its order of summation: {same64}", flush=True)
-            # f64 leaves the count to the termination test's period: the
-            # test runs once a major, so a residual that crosses the
-            # tolerance a rounding earlier or later moves it by one major.
+            ratio64 = r64.iterations / single64.iterations
             require(r64.termination_reason == TerminationReason.OPTIMAL
-                    and abs(r64.iterations - single64.iterations)
-                    <= p64.termination_check_frequency and rel64 <= 1e-6,
-                    f"mesh {shape}, f64: {r64.iterations} iterations, more "
-                    f"than a major from the single path's "
-                    f"{single64.iterations}")
+                    and abs(ratio64 - 1) <= F64_MESH_ITERATIONS
+                    and rel64 <= 1e-6,
+                    f"mesh {shape}, f64: {r64.termination_reason.name} "
+                    f"after {r64.iterations} iterations (ratio {ratio64:.3f}"
+                    f" to the single path's {single64.iterations}, bound "
+                    f"{F64_MESH_ITERATIONS}), objective rel {rel64:.2e}")
             require(alike64 and same64, f"mesh {shape}, f64: the ranks' "
                     f"results differ, or differ from the one-process solve")
         for k in ranks:
@@ -2689,7 +2994,7 @@ def assignment_packing(errs: dict) -> dict:
           flush=True)
     require(log.backends[:1] == ["PdhgNodeBackend"],
             f"u{U120['items']}: the auto rule chose {log.backends[:1]}")
-    require(cnt["launches"]["block_spmv_exact"] > 0
+    require(exact_spmvs(cnt["launches"]) > 0
             and cnt["launches"][SPMM["name"]] > 0,
             f"u{U120['items']}: a kernel was not launched: "
             f"{cnt['launches']}")
@@ -4028,11 +4333,12 @@ def lp_file_round_trip(bench_qp) -> QuadraticProgram:
     return read
 
 
-def lp_file_solve(bench_qp, read_qp) -> dict:
+def lp_file_solve(bench_qp, read_qp, errs: dict) -> dict:
     """(a) ``pdlp.solve`` at the bench's parameters on the QP as read, the
     launch counters set to 0 just before and read just after, bit for bit
-    the same call on the generated QP; then both SpMVs against their plain
-    versions on the read matrix, A and A^T.  Returns the launches."""
+    the same call on the generated QP; then the SpMVs against their plain
+    versions on the read matrix, A and A^T (largest errors into
+    ``errs``).  Returns the launches."""
     params = PdhgParams(**BENCH_PARAMS,
                         iteration_limit=BENCH_ITERATION_LIMIT)
     ref = solve(bench_qp, params)
@@ -4055,10 +4361,9 @@ def lp_file_solve(bench_qp, read_qp) -> dict:
             f"{launches}")
     prob = pdlp_solver.build_device_problem(read_qp,
                                             PdhgParams(**BENCH_PARAMS), "cuda")
-    errs: dict = {}
     for name, mat in (("A", prob.a), ("A^T", prob.at)):
         bm, bn = mat.block_shape
-        check_matrix(f"LP file {name} ({bm}x{bn})", mat.without_tiled(), errs)
+        check_built(f"LP file {name} ({bm}x{bn})", mat, errs)
     del prob
     torch.cuda.empty_cache()
     return launches
@@ -4078,7 +4383,7 @@ def stacked_moderate() -> QuadraticProgram:
         variable_upper=cat("variable_upper"), name="stacked_moderate")
 
 
-def decomposed_stack() -> dict:
+def decomposed_stack(errs: dict) -> dict:
     """(b) ``decompose`` of the stack: four blocks, each solved by
     ``pdlp.solve`` on the card to OPTIMAL; the blocks' objectives summed
     against the sum of phase 4's HiGHS optima, and the assembled x held
@@ -4086,7 +4391,9 @@ def decomposed_stack() -> dict:
     (eps_optimal_absolute + eps_optimal_relative times each block's bound
     norm; the f32 solution moves off a bound by its rounding).  The rows without entries are in no
     block (the reference's fault, copied): each has 0 in its bounds here,
-    so dropping them changes nothing.  Returns the launches."""
+    so dropping them changes nothing.  Then the SpMVs against their plain
+    versions on block 0's scaled matrices (largest errors into ``errs``).
+    Returns the launches."""
     qp = stacked_moderate()
     t0 = time.perf_counter()
     dec = decompose(qp)
@@ -4114,10 +4421,15 @@ def decomposed_stack() -> dict:
                               solve, block, params)
         require(r.termination_reason == TerminationReason.OPTIMAL,
                 f"block {k}: {r.termination_reason.name}")
-        require(launches["block_spmv_exact"] > 0,
+        require(exact_spmvs(launches) > 0,
                 f"block {k}: the exact SpMV was not launched: {launches}")
         _add(total, launches)
         results.append(r)
+    prob = pdlp_solver.build_device_problem(
+        dec.blocks[0].as_minimization(), params, "cuda")
+    for name, mat in (("A", prob.a), ("A^T", prob.at)):
+        check_built(f"decomposed block 0 {name}", mat, errs)
+    del prob
     ref = sum(moderate_refs(MODERATE_SEEDS).values())
     obj = sum(r.primal_objective for r in results)
     rel = abs(obj - ref) / (1 + abs(ref))
@@ -4337,7 +4649,7 @@ def examples() -> dict:
         if stem == "pdlp_large_lp":
             require(out.termination_reason == TerminationReason.OPTIMAL,
                     f"pdlp_large_lp: {out.termination_reason.name}")
-            require(launches["block_spmv_exact"] > 0,
+            require(exact_spmvs(launches) > 0,
                     f"pdlp_large_lp launched no SpMV: {launches}")
         if stem == "maxsat_wcnf":
             print(f"    minimize_max_hs called on {spy.devices}", flush=True)
@@ -4347,15 +4659,16 @@ def examples() -> dict:
     return total
 
 
-def slice13() -> dict:
-    """Phase 15.  Returns the launches of its counted calls."""
+def slice13(errs: dict) -> dict:
+    """Phase 15.  Returns the launches of its counted calls; the kernels'
+    largest errors on its matrices go into ``errs``."""
     t0 = time.perf_counter()
     bench_qp = block_random_lp(**BENCH)
     read_qp = lp_file_round_trip(bench_qp)
-    launches = lp_file_solve(bench_qp, read_qp)
+    launches = lp_file_solve(bench_qp, read_qp, errs)
     del read_qp, bench_qp
     torch.cuda.empty_cache()
-    _add(launches, decomposed_stack())
+    _add(launches, decomposed_stack(errs))
     _add(launches, jobshops())
     with tempfile.TemporaryDirectory(dir=FRONTEND_DIR) as tmp:
         _add(launches, flatzinc_knapsack(Path(tmp)))
@@ -4489,7 +4802,10 @@ def slice14(stream_s: dict) -> tuple:
           f"{miplib['total_nodes']} nodes")
     for r in records:
         print(f"  {r}")
-    require(all(v > 0 for v in total.values()),
+    # The benches' LPs are dense 8x128 blocks: every block kernel runs,
+    # and the layout rule leaves the row kernel out.
+    require(all(total[k] > 0 for k in list(KERNELS) + [SPMM["name"]])
+            and total[ROWS["name"]] == 0,
             f"a kernel was not launched by the benches: {total}")
     print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches {total}",
           flush=True)
@@ -4617,7 +4933,7 @@ def lp_suite(errs: dict) -> dict:
             f"(blocks 10 and 11 are infeasible)")
     require(len(checked) == out["n_instances"] == 12,
             "a block of the LP suite was not checked against HiGHS")
-    require(launches["block_spmv_exact"] > 0,
+    require(exact_spmvs(launches) > 0,
             "the LP suite launched no exact SpMV")
     spec = importlib.util.spec_from_file_location(
         "bench_lp_suite_batch_torch",
@@ -4629,7 +4945,7 @@ def lp_suite(errs: dict) -> dict:
     prob = pdlp_solver.build_device_problem(stack, suite_mod.params(),
                                             "cuda")
     for name, mat in (("A", prob.a), ("A^T", prob.at)):
-        check_matrix(f"LP suite stack {name}", mat.without_tiled(), errs)
+        check_built(f"LP suite stack {name}", mat, errs)
     return launches
 
 
@@ -4686,7 +5002,7 @@ def multichip(errs: dict) -> dict:
             "a multichip solve did not end OPTIMAL")
     require(out["objective_rel_diff"] <= 1e-6,
             "the single and mesh objectives differ by more than 1e-6")
-    require(launches["block_spmv_exact"] > 0,
+    require(exact_spmvs(launches) > 0,
             "the single f64 solve launched no exact SpMV")
     require(any(ln.startswith("# single solve:") and "peak device memory"
                 in ln for ln in notes),
@@ -4698,15 +5014,15 @@ def multichip(errs: dict) -> dict:
     print(f"the f64 problem built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, mat in (("A", prob.a), ("A^T", prob.at)):
-        check_matrix(f"multichip {name}", mat.without_tiled(), errs)
+        check_built(f"multichip {name}", mat, errs)
     return launches
 
 
-def slice15(stream_gbps: float) -> dict:
+def slice15(stream_gbps: float, largest: dict) -> dict:
     """Phase 17: the four device scripts of scripts/ in subprocesses, each
     checked; their kernels against the plain versions on the scripts'
-    matrices.  Returns the launches summed from the scripts' ``#
-    launches`` lines."""
+    matrices (the largest errors printed, and folded into ``largest``).
+    Returns the launches summed from the scripts' ``# launches`` lines."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     errs: dict = {}
@@ -4719,6 +5035,7 @@ def slice15(stream_gbps: float) -> dict:
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t0:.1f} s; launches {total}; "
           f"largest errors {errs}", flush=True)
+    _fold(largest, errs)
     return total
 
 
@@ -4765,7 +5082,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("4. moderate LPs to OPTIMAL against HiGHS")
-    moderate_solve()
+    moderate_solve(errs=errs)
 
     phase("5. full width: the bench LP through pdlp.solve")
     launches = main_path(bench_qp)
@@ -4778,6 +5095,10 @@ def main() -> int:
     times = kernel_times(bench_prob)
     launch_floor()
     shape_times(bench_prob)
+    del bench_prob
+    torch.cuda.empty_cache()
+    row_ms = row_times()
+    boundary = boundary_times()
 
     phase("6. the rest of the solve: ADAPTIVE_HEURISTIC, Malitsky-Pock, "
           "polishing, presolve")
@@ -4830,7 +5151,7 @@ def main() -> int:
     phase("15. the last modules: the bench LP through an LP file, the "
           "decomposer, scheduling (ft10 on LCG), FlatZinc, pywrapcp, the "
           "nine examples")
-    slice13_launches = slice13()
+    slice13_launches = slice13(errs)
 
     phase("16. the bench port: python -m ortools_tpu_torch bench, "
           "bench_large_torch.py, bench_miplib_torch.py "
@@ -4840,7 +5161,7 @@ def main() -> int:
     phase("17. the JAX package's last scripts: the HBM roofline, the LP "
           "suite as one LP, on-chip search, the 1.04M-nonzero LP on one "
           f"card and on a {MULTICHIP_MESH} mesh")
-    slice15_launches = slice15(stream_gbps)
+    slice15_launches = slice15(stream_gbps, errs)
 
     phase("8. kernels")
     kernels = []
@@ -4882,6 +5203,21 @@ def main() -> int:
         slice13_launches=slice13_launches[SPMM["name"]],
         phase16_launches=slice14_launches[SPMM["name"]],
         phase17_launches=slice15_launches[SPMM["name"]], ok=True))
+    name = ROWS["name"]
+    kernels.append(dict(
+        name=name, route=ROWS["route"], source=ROWS["source"],
+        replaces=ROWS["replaces"], max_abs_err=errs[name],
+        mesh_shard_max_abs_err=shard_errs.get(name, 0.0), times=row_ms,
+        boundary=boundary,
+        mip_path_launches=mip_launches.get(name, 0),
+        frontend_launches=front_launches.get(name, 0),
+        mesh_path_launches=mesh_launches.get(name, 0),
+        host_front_ends_launches=host_launches.get(name, 0),
+        cp_sat_launches=cp_launches.get(name, 0),
+        slice12_launches=slice12_launches.get(name, 0),
+        slice13_launches=slice13_launches.get(name, 0),
+        phase16_launches=slice14_launches.get(name, 0),
+        phase17_launches=slice15_launches.get(name, 0), ok=True))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

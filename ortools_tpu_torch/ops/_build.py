@@ -34,17 +34,24 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# schedule, block_cols, data, x, y; num_block_rows, num_long, bm, bn,
+# device; stream
+_BLOCK_SPMV = [_P] * 5 + [_I] * 5 + [_P]
+# order, row_ptr, cols, values, x, y, bin_rows (host); num_rows, device;
+# stream
+_ROWS_SPMV = [_P] * 7 + [_I] * 2 + [_P]
+# items, row_ptr, block_cols, data, x, y; num_items, num_block_rows, bm,
+# bn, batch, n, m, device; stream
+_BLOCK_SPMM = [_P] * 6 + [_I] * 8 + [_P]
 # Each library's functions and their argument types.
 _FUNCTIONS = {
-    # schedule, block_cols, data, x, y; num_block_rows, num_long, bm, bn,
-    # device; stream
-    "block_spmv": (("block_spmv_exact_f32", "block_spmv_exact_f64",
-                    "block_spmv_fast_bf16"),
-                   [_P] * 5 + [_I] * 5 + [_P]),
-    # items, row_ptr, block_cols, data, x, y; num_items, num_block_rows,
-    # bm, bn, batch, n, m, device; stream
-    "block_spmm": (("block_spmm_exact_f32", "block_spmm_exact_f64"),
-                   [_P] * 6 + [_I] * 8 + [_P]),
+    "block_spmv": {"block_spmv_exact_f32": _BLOCK_SPMV,
+                   "block_spmv_exact_f64": _BLOCK_SPMV,
+                   "block_spmv_fast_bf16": _BLOCK_SPMV,
+                   "block_spmv_rows_f32": _ROWS_SPMV,
+                   "block_spmv_rows_f64": _ROWS_SPMV},
+    "block_spmm": {"block_spmm_exact_f32": _BLOCK_SPMM,
+                   "block_spmm_exact_f64": _BLOCK_SPMM},
 }
 
 _libs: dict = {}
@@ -132,8 +139,7 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build((name,))
         lib = ctypes.CDLL(str(_library_path(name)))
-        functions, argtypes = _FUNCTIONS[name]
-        for fname in functions:
+        for fname, argtypes in _FUNCTIONS[name].items():
             fn = getattr(lib, fname)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -11,10 +11,12 @@ block-COO layout:
 
 The host packing is the JAX package's, so the arrays are the same.  A 1-D
 ``matvec`` goes through the block-row kernel (``ops/tiled_spmv.py``) once
-its layout is attached (``with_tiled``); on a CUDA tensor that is the only
-way, because nothing on the card runs the plain product.  Without the
-layout, on the CPU, it is the plain gather + batched mat-vec +
-``index_add_`` of ``_block_matvec``.  ``matvec`` of a batch of vectors
+its layout is attached (``with_tiled``), or through the row kernel where a
+row layout of the nonzeros is attached as well (``with_rows``, for
+matrices of low fill); on a CUDA tensor that is the only way, because
+nothing on the card runs the plain product.  Without a layout, on the
+CPU, it is the plain gather + batched mat-vec + ``index_add_`` of
+``_block_matvec``.  ``matvec`` of a batch of vectors
 (``[B, N]``, the layout of the batched solve) is the block SpMM in the same
 way: the ``block_spmm_exact`` kernel on a card, its plain version on the
 CPU.  ``matmat`` takes the JAX method's ``[N, k]`` layout.
@@ -30,7 +32,7 @@ import scipy.sparse as sp
 import torch
 
 from ortools_tpu_torch.ops import tiled_spmv
-from ortools_tpu_torch.ops.tiled_spmv import BlockRowLayout
+from ortools_tpu_torch.ops.tiled_spmv import BlockRowLayout, RowLayout
 from ortools_tpu_torch.utils.device import resolve_device
 
 
@@ -51,6 +53,10 @@ class BlockSparseMatrix:
     # Block-row kernel layout (ops/tiled_spmv.py); when present, 1-D
     # matvec launches the CUDA kernel (its plain version on the CPU).
     tiled: Optional[BlockRowLayout] = None
+    # Row layout of the nonzeros (ops/tiled_spmv.py); when present, 1-D
+    # matvec launches the row kernel instead, and the blocks serve the
+    # batched product.
+    rows: Optional[RowLayout] = None
 
     # -- properties -----------------------------------------------------
     @property
@@ -180,9 +186,19 @@ class BlockSparseMatrix:
     def has_fast_stream(self) -> bool:
         return self.tiled is not None and self.tiled.data_hi is not None
 
+    def with_rows(self, csr: Optional[sp.spmatrix] = None
+                  ) -> "BlockSparseMatrix":
+        """Attach the row layout of the nonzeros of ``csr``, the matrix
+        these blocks hold (by default read back from the blocks)."""
+        return dataclasses.replace(self, rows=tiled_spmv.make_row_layout(
+            self.to_csr() if csr is None else csr, self.padded_shape[0],
+            self.padded_shape[1], self.dtype, self.device))
+
     def without_tiled(self) -> "BlockSparseMatrix":
-        return (dataclasses.replace(self, tiled=None)
-                if self.tiled is not None else self)
+        """The matrix without its kernel layouts."""
+        if self.tiled is None and self.rows is None:
+            return self
+        return dataclasses.replace(self, tiled=None, rows=None)
 
     # -- products --------------------------------------------------------
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -195,6 +211,8 @@ class BlockSparseMatrix:
             return tiled_spmv.block_product_batched(
                 self.data, self.block_rows, self.block_cols, x,
                 self.padded_shape[0] // self.block_shape[0])
+        if self.rows is not None:
+            return tiled_spmv.rows_matvec(self.rows, x)
         if self.tiled is not None:
             return tiled_spmv.tiled_matvec(self.tiled, x)
         self._require_cpu(x)
@@ -221,6 +239,17 @@ class BlockSparseMatrix:
         return self.matvec(x)
 
     # -- conversion back -------------------------------------------------
+    def to_csr(self) -> sp.csr_matrix:
+        """The padded M x N matrix the blocks hold, their nonzeros alone,
+        as a scipy CSR matrix in float64."""
+        bm, bn = self.block_shape
+        data = self.data.detach().cpu().double().numpy()
+        b, i, j = np.nonzero(data)
+        rows = self.block_rows.cpu().numpy().astype(np.int64)[b] * bm + i
+        cols = self.block_cols.cpu().numpy().astype(np.int64)[b] * bn + j
+        return sp.csr_matrix((data[b, i, j], (rows, cols)),
+                             shape=self.padded_shape)
+
     def to_dense(self) -> np.ndarray:
         bm, bn = self.block_shape
         mm, nn = self.padded_shape

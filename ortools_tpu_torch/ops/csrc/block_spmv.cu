@@ -14,6 +14,9 @@
 //   nearest even), products and sums in f32.  The TPU kernel also rounds
 //   each block's partial sums to bf16 before its scatter; that is an
 //   artifact of its MXU scatter and is not copied.
+// - block_spmv_rows<T> (T = float, double) replaces none: the exact
+//   product over a row layout of the nonzeros alone, for matrices whose
+//   blocks are mostly zeros (its own section, below).
 //
 // Bound on an H100 SXM (3.35 TB/s at 700 W): the matrix bytes, each read
 // once.  At the bench shape (16384^2, 4096 blocks of 8x128, and its
@@ -444,6 +447,223 @@ int launch(const int4* schedule, const int32_t* block_cols, const void* data,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// The row layout: y = A x over the nonzeros alone
+// ---------------------------------------------------------------------------
+//
+// block_spmv_kernel_rows<Tr> (Tr = ExactF32, ExactF64) replaces no TPU
+// kernel: the TPU module has no dynamic indexing, so it has only blocks.
+// It serves matrices of low fill, where the blocks hold mostly zeros:
+// tiled_spmv.make_row_layout keeps the values in the matrix's dtype, int32
+// column indices and int32 row pointers over the padded rows (padded rows
+// are empty, so they get 0), the rows stored bin by bin with the matrix
+// row of each (order), and tiled_spmv.prefer_rows attaches it where it
+// reads at most half the bytes of the stored blocks.  On the 12,700 x
+// 280,000 flow LP of 840,000 nonzeros (47,360 blocks of 8x128, 1.73%
+// fill) the blocks are 388 MB of f64 a product and the rows 10.1 MB.
+//
+// Bound: bytes (0.19 flop a byte in f64).  Each value and column index is
+// read once, from device memory, out of L1 (ld_row<false>, as ld_stream);
+// x is gathered through the read-only path, where it stays in L2 (the flow
+// LP's x is 2.24 MB and its y 100 KB, in a 50 MB L2); y is written once.
+//
+// Teams: a row goes to a team of 1 to 32 lanes of one warp, by its length
+// (tiled_spmv.row_bins: the fewest lanes that leave each at most 4
+// nonzeros).  The rows are stored bin by bin, widest teams first, and run
+// so in one launch: bin i takes thread blocks [start[i], start[i + 1]),
+// each of kRowThreads / lanes rows.  A row's matrix row (order) is read
+// beside its pointers and used only for the store, so it adds no step to
+// the chain of loads.  Lane l of a team takes the row's nonzeros l, l +
+// lanes, ...: neighbouring lanes read neighbouring values.  A pass makes
+// kRowUnroll loads of values and indices per lane (the last index
+// clamped, so no load sits under a branch), then their kRowUnroll gathers
+// of x, then the sums.  Teams of 1 and 2 lanes keep their values in L1:
+// the warp's lanes read neighbouring rows, so one line serves several
+// loads of theirs.
+//
+// Numbers (NVIDIA H100 80GB HBM3, 700 W, L2-cold; PERF.md, Findings): the
+// flow LP's A 10.1 us and A^T 7.9 us against 3.7 and 4.4 us for their
+// bytes; the block kernel took 134 and 125 us on the same matrices, torch's
+// CSR product 15.2 and 16.1.  Measured in one call against this design (A
+// 10.1 us, A^T 8.6, the relaxation's A 4.5) and not kept: rows in matrix
+// order with the order read first (A^T 9.1 us, the relaxation's A 5.0); 2
+// or 8 nonzeros a lane (A 11.1 and 9.8 us, the relaxation's A 4.6 and
+// 5.7); 16 loads a pass for the 32-lane teams (A 9.1 us, the relaxation's
+// A 5.2); 256 threads a block (no change); every load kept in L1, or none
+// (A 11.2 us; A^T 10.4).
+//
+// Deterministic output: each lane sums its nonzeros in order, the team's
+// sums meet by a fixed xor butterfly, and lane 0 writes the row's y entry,
+// once; no atomics, so repeated launches are bit-identical.
+
+constexpr int kRowThreads = 128;  // threads of a thread block
+constexpr int kRowBins = 6;       // teams of 32 >> i lanes, i < kRowBins
+constexpr int kRowUnroll = 4;     // loads of each array per lane a pass
+
+struct RowBins {
+  int start[kRowBins + 1];  // bin i: thread blocks [start[i], start[i + 1])
+  int first[kRowBins];      // its stored rows: [first[i], first[i] + rows[i])
+  int rows[kRowBins];
+};
+
+// Loads of one scalar from the read-only path: kept out of L1 (kKeep
+// false) or cached there.  Volatile, like ld_stream.
+template <bool kKeep>
+__device__ __forceinline__ double ld_row(const double* p) {
+  double v;
+  if constexpr (kKeep) {
+    asm volatile("ld.global.nc.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.f64 %0, [%1];"
+                 : "=d"(v) : "l"(p));
+  }
+  return v;
+}
+
+template <bool kKeep>
+__device__ __forceinline__ float ld_row(const float* p) {
+  float v;
+  if constexpr (kKeep) {
+    asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];"
+                 : "=f"(v) : "l"(p));
+  }
+  return v;
+}
+
+template <bool kKeep>
+__device__ __forceinline__ int32_t ld_row(const int32_t* p) {
+  int32_t v;
+  if constexpr (kKeep) {
+    asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.s32 %0, [%1];"
+                 : "=r"(v) : "l"(p));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// The stored rows [first, first + rows) on teams of T lanes; this thread
+// block is the bin's `block`-th.
+template <class Vec, int T>
+__device__ __forceinline__ void row_team(
+    const int32_t* __restrict__ order, const int32_t* __restrict__ row_ptr,
+    const int32_t* __restrict__ cols, const Vec* __restrict__ values,
+    const Vec* __restrict__ x, Vec* __restrict__ y, int first, int rows,
+    int block) {
+  constexpr bool kKeep = T < 4;
+  const int team =
+      block * (kRowThreads / T) + static_cast<int>(threadIdx.x) / T;
+  if (team >= rows) return;  // a team's lanes leave together
+  const int lane = threadIdx.x % T;
+  const int i = first + team;  // the stored row; r, the matrix's
+  const int start = __ldg(row_ptr + i);
+  const int end = __ldg(row_ptr + i + 1);
+  const int r = __ldg(order + i);
+  Vec acc = Vec(0);
+  for (int k0 = start + lane; k0 < end; k0 += T * kRowUnroll) {
+    Vec v[kRowUnroll];
+    int32_t c[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      const int k = min(k0 + T * u, end - 1);
+      v[u] = ld_row<kKeep>(values + k);
+      c[u] = ld_row<kKeep>(cols + k);
+    }
+    Vec xv[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) xv[u] = ld_row<true>(x + c[u]);
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      if (k0 + T * u < end) acc = fma_rn(v[u], xv[u], acc);
+    }
+  }
+  if constexpr (T > 1) {
+    unsigned mask = 0xffffffffu;  // the team's lanes of the warp
+    if constexpr (T < 32) {
+      mask = ((1u << T) - 1u) << ((threadIdx.x % 32) & ~(T - 1));
+    }
+#pragma unroll
+    for (int off = T / 2; off > 0; off >>= 1) {
+      acc += __shfl_xor_sync(mask, acc, off, T);
+    }
+  }
+  if (lane == 0) y[r] = acc;
+}
+
+template <class Tr>
+__global__ void __launch_bounds__(kRowThreads)
+block_spmv_kernel_rows(const int32_t* __restrict__ order,
+                       const int32_t* __restrict__ row_ptr,
+                       const int32_t* __restrict__ cols,
+                       const typename Tr::Vec* __restrict__ values,
+                       const typename Tr::Vec* __restrict__ x,
+                       typename Tr::Vec* __restrict__ y, RowBins bins) {
+  using Vec = typename Tr::Vec;
+  const int b = blockIdx.x;
+  // The last bin that starts at or before b (an empty bin starts where
+  // the next one does, so it is passed over).
+  int bin = 0;
+#pragma unroll
+  for (int i = 1; i < kRowBins; ++i) bin += b >= bins.start[i];
+#define OTT_ROW_BIN(I)                                                     \
+  case I:                                                                  \
+    row_team<Vec, (32 >> I)>(order, row_ptr, cols, values, x, y,           \
+                             bins.first[I], bins.rows[I],                  \
+                             b - bins.start[I]);                           \
+    break;
+  switch (bin) {
+    OTT_ROW_BIN(0)
+    OTT_ROW_BIN(1)
+    OTT_ROW_BIN(2)
+    OTT_ROW_BIN(3)
+    OTT_ROW_BIN(4)
+    OTT_ROW_BIN(5)
+  }
+#undef OTT_ROW_BIN
+}
+
+template <class Tr>
+int launch_rows(const int32_t* order, const int32_t* row_ptr,
+                const int32_t* cols, const typename Tr::Vec* values,
+                const typename Tr::Vec* x, typename Tr::Vec* y,
+                const int32_t* bin_rows, int num_rows, int device,
+                cudaStream_t stream) {
+  RowBins bins;
+  long long blocks = 0;
+  long long first = 0;
+  bins.start[0] = 0;
+  for (int i = 0; i < kRowBins; ++i) {
+    if (bin_rows[i] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    bins.first[i] = static_cast<int>(first);
+    bins.rows[i] = bin_rows[i];
+    first += bin_rows[i];
+    blocks += (static_cast<long long>(bin_rows[i]) * (32 >> i) +
+               kRowThreads - 1) / kRowThreads;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    bins.start[i + 1] = static_cast<int>(blocks);
+  }
+  if (num_rows < 0 || first != num_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (blocks == 0) return 0;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  block_spmv_kernel_rows<Tr><<<static_cast<unsigned>(blocks), kRowThreads, 0,
+                               stream>>>(order, row_ptr, cols, values, x, y,
+                                         bins);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the launch's CUDA
@@ -477,6 +697,27 @@ int block_spmv_fast_bf16(const void* schedule, const int32_t* block_cols,
   return launch<FastBf16>(static_cast<const int4*>(schedule), block_cols,
                           data, x, y, num_block_rows, num_long, bm, bn, device,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The row kernel: order, row_ptr, cols and values are make_row_layout's
+// (device); bin_rows, the rows of each of the six bins (32, 16, 8, 4, 2
+// and 1 lanes), is a host array, read before the launch.
+int block_spmv_rows_f32(const int32_t* order, const int32_t* row_ptr,
+                        const int32_t* cols, const float* values,
+                        const float* x, float* y, const int32_t* bin_rows,
+                        int num_rows, int device, void* stream) {
+  return launch_rows<ExactF32>(order, row_ptr, cols, values, x, y, bin_rows,
+                               num_rows, device,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int block_spmv_rows_f64(const int32_t* order, const int32_t* row_ptr,
+                        const int32_t* cols, const double* values,
+                        const double* x, double* y, const int32_t* bin_rows,
+                        int num_rows, int device, void* stream) {
+  return launch_rows<ExactF64>(order, row_ptr, cols, values, x, y, bin_rows,
+                               num_rows, device,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

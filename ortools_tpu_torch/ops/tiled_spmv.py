@@ -28,6 +28,14 @@ mat-vec + ``index_add_``), which is also what the tests and
 ``chip_smoke.py`` hold the kernels against.  Each wrapper counts its
 kernel launches in ``.launches``; a CUDA graph that captured launches adds
 them there at each replay (``count_launches``).
+
+A matrix of low fill also gets a row layout of its nonzeros alone
+(``RowLayout``: CSR values in the matrix's dtype, int32 column indices,
+int32 row pointers over the padded rows, and the rows binned by length
+for teams of 1 to 32 lanes), where it reads at most half the bytes of the
+stored blocks (``prefer_rows``).  ``rows_matvec`` launches
+``block_spmv_rows`` (``csrc/block_spmv.cu``) on it, the exact 1-D product;
+its plain version gathers x and sums each row with ``index_add_``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 # Block dims the CUDA kernels are instantiated for (csrc/block_spmv.cu).
@@ -55,6 +64,12 @@ WARP_ROW_BYTES = 65536
 SPMM_ROWS = 32
 SPMM_ITEM_ENTRIES = 2 * 1024
 SPMM_ITEM_ROWS = 64
+# The row kernel's teams (csrc/block_spmv.cu, block_spmv_kernel_rows): a
+# row of the row layout goes to a team of ROW_LANES[i] lanes, the fewest
+# that leave each lane at most ROW_LANE_NNZ of its nonzeros (32 at most);
+# the bins are in this order, widest first.
+ROW_LANES = (32, 16, 8, 4, 2, 1)
+ROW_LANE_NNZ = 4
 
 
 class BlockRowLayout(NamedTuple):
@@ -194,6 +209,103 @@ def make_layout(data: torch.Tensor, block_rows: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The row layout
+# ---------------------------------------------------------------------------
+
+
+class RowLayout(NamedTuple):
+    """A matrix's nonzeros alone, row by row (CSR), over its padded rows,
+    the rows stored in the row kernel's order: bin by bin
+    (``row_bins``), so that the rows of a bin are one run of memory."""
+
+    row_ptr: torch.Tensor  # int32 [M + 1] over the stored rows
+    cols: torch.Tensor  # int32 [nnz]
+    values: torch.Tensor  # [nnz], the matrix's dtype
+    order: torch.Tensor  # int32 [M]: the matrix row of each stored row
+    bin_rows: Tuple[int, ...]  # rows in each bin, one a ROW_LANES entry
+    num_cols: int  # x has num_cols entries
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.row_ptr.shape[0]) - 1
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+
+def row_bins(lengths: np.ndarray):
+    """The row kernel's schedule, from the rows' lengths in nonzeros:
+    returns ``(order, bin_rows)``.  Row r goes to the bin of the fewest
+    ``ROW_LANES`` that leave each lane at most ``ROW_LANE_NNZ`` nonzeros
+    (the widest bin takes the rest); ``order`` lists the rows bin by bin,
+    widest first, each bin in row order (a stable sort, so the schedule is
+    a function of the lengths), and ``bin_rows`` counts each bin's rows.
+    Empty rows go to the one-lane bin, which writes their zeros."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    need = -(-lengths // ROW_LANE_NNZ)  # lanes at ROW_LANE_NNZ each
+    bins = np.zeros(lengths.size, dtype=np.int64)  # index into ROW_LANES
+    for i, lanes in enumerate(ROW_LANES[1:], start=1):
+        bins[need <= lanes] = i
+    order = np.argsort(bins, kind="stable").astype(np.int32)
+    counts = np.bincount(bins, minlength=len(ROW_LANES))
+    return order, tuple(int(c) for c in counts)
+
+
+def prefer_rows(nnz: int, num_rows: int, num_blocks: int, block_shape,
+                value_bytes: int) -> bool:
+    """Whether the row layout reads at most half the bytes of the stored
+    blocks: values and column indices of each nonzero and the row
+    pointers, against every stored entry of every block.
+
+    The half comes from both exact kernels timed on the same 8x128-block
+    matrices at and around it (``chip_smoke.py::boundary_times``; H100,
+    L2-cold; two calls).  At the half, the row kernel took 0.36-0.70 of
+    the block kernel's time on matrices of many rows, and 1.13-1.20 on
+    1,024 rows of about 2,700 nonzeros, one warp each.  Those rows reach the block
+    kernel's time at about 0.42 of its bytes, the others at 0.8 to past 1.
+    In f32 the blocks' bf16 stream reads half their bytes again, and the
+    row kernel reached its time at 0.2-0.55.  At 1, the long rows took 2.0
+    times the block kernel's time and 1.5-3.3 times the bf16 stream's; at
+    0.4, matrices of many rows would keep blocks that take 1.5-2.7 times
+    the row kernel's."""
+    bm, bn = block_shape
+    return (nnz * (value_bytes + 4) + 4 * (num_rows + 1)
+            <= num_blocks * bm * bn * value_bytes / 2)
+
+
+def make_row_layout(csr, num_rows: int, num_cols: int, dtype: torch.dtype,
+                    device) -> RowLayout:
+    """The row layout of a scipy sparse matrix of at most ``num_rows`` x
+    ``num_cols`` (the padded shape; the rows past the matrix's are empty),
+    its values cast to ``dtype``.  Duplicates are summed and stored zeros
+    dropped first, as the block layout holds them."""
+    csr = csr.tocsr(copy=True)
+    csr.sum_duplicates()
+    csr.eliminate_zeros()
+    m, n = csr.shape
+    if m > num_rows or n > num_cols:
+        raise ValueError(f"a {m} x {n} matrix does not fit {num_rows} x "
+                         f"{num_cols}")
+    if csr.nnz >= 2 ** 31:
+        raise ValueError(f"{csr.nnz} nonzeros overflow the int32 indices")
+    indptr = np.full(num_rows + 1, csr.nnz, dtype=np.int64)
+    indptr[:m + 1] = csr.indptr
+    order, bin_rows = row_bins(np.diff(indptr))
+    stored = sp.csr_matrix((csr.data, csr.indices, indptr),
+                           shape=(num_rows, num_cols))[order]
+    return RowLayout(
+        row_ptr=torch.as_tensor(stored.indptr.astype(np.int32),
+                                device=device),
+        cols=torch.as_tensor(stored.indices.astype(np.int32), device=device),
+        values=torch.as_tensor(stored.data, dtype=dtype, device=device),
+        order=torch.as_tensor(order, device=device),
+        bin_rows=bin_rows,
+        num_cols=num_cols,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
@@ -249,6 +361,16 @@ def tiled_matvec_fast_plain(t: BlockRowLayout,
     xr = x.to(torch.bfloat16).to(torch.float32)
     return block_product(t.data_hi.to(torch.float32), t.block_rows,
                          t.block_cols, xr, t.num_block_rows)
+
+
+def rows_matvec_plain(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``block_spmv_rows``: each nonzero times its x
+    entry, summed into its row."""
+    lengths = (t.row_ptr[1:] - t.row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(t.order.long(), lengths)
+    y = torch.zeros(t.num_rows, dtype=x.dtype, device=x.device)
+    y.index_add_(0, rows, t.values * x.index_select(0, t.cols.long()))
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -386,18 +508,65 @@ def tiled_matmat(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def rows_matvec(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """y = A x over the row layout, exact, in the matrix's dtype (f32 or
+    f64); x is the padded length-N vector, y the padded length-M
+    vector."""
+    if x.device.type == "cpu":
+        return rows_matvec_plain(t, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    from ortools_tpu_torch.ops import _build
+
+    lib = _build.library("block_spmv")
+    if t.values.dtype == torch.float32:
+        fn = lib.block_spmv_rows_f32
+    elif t.values.dtype == torch.float64:
+        fn = lib.block_spmv_rows_f64
+    else:
+        raise TypeError(f"no row kernel for {t.values.dtype}")
+    if x.dtype != t.values.dtype:
+        raise TypeError(f"x is {x.dtype}, the kernel takes {t.values.dtype}")
+    if x.dim() != 1 or x.shape[0] != t.num_cols:
+        raise ValueError(f"x must be the padded length-{t.num_cols} vector, "
+                         f"got shape {tuple(x.shape)}")
+    for name, v in (("x", x), ("values", t.values), ("row_ptr", t.row_ptr),
+                    ("cols", t.cols), ("order", t.order)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if any(v.dtype != torch.int32 for v in (t.row_ptr, t.cols, t.order)):
+        raise TypeError("row_ptr, cols and order must be int32")
+    y = torch.empty(t.num_rows, dtype=x.dtype, device=x.device)
+    bins = (ctypes.c_int * len(ROW_LANES))(*t.bin_rows)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(ctypes.c_void_p(t.order.data_ptr()),
+             ctypes.c_void_p(t.row_ptr.data_ptr()),
+             ctypes.c_void_p(t.cols.data_ptr()),
+             ctypes.c_void_p(t.values.data_ptr()),
+             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+             ctypes.cast(bins, ctypes.c_void_p), t.num_rows, x.device.index,
+             ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    rows_matvec.launches += 1
+    return y
+
+
 tiled_matvec.launches = 0
 tiled_matvec_fast.launches = 0
 tiled_matmat.launches = 0
+rows_matvec.launches = 0
 
 
-def launch_counts() -> Tuple[int, int, int]:
-    """(exact, fast, SpMM) kernel launches counted so far."""
+def launch_counts() -> Tuple[int, int, int, int]:
+    """(exact, fast, SpMM, row) kernel launches counted so far."""
     return (tiled_matvec.launches, tiled_matvec_fast.launches,
-            tiled_matmat.launches)
+            tiled_matmat.launches, rows_matvec.launches)
 
 
-def count_launches(exact: int, fast: int, spmm: int) -> None:
+def count_launches(exact: int, fast: int, spmm: int, rows: int) -> None:
     """Add launches that the wrappers' code did not make itself: a CUDA
     graph's replay launches the kernels it captured, while the capture,
     which ran the wrappers, launched none (its counts are taken back with
@@ -405,3 +574,4 @@ def count_launches(exact: int, fast: int, spmm: int) -> None:
     tiled_matvec.launches += exact
     tiled_matvec_fast.launches += fast
     tiled_matmat.launches += spmm
+    rows_matvec.launches += rows

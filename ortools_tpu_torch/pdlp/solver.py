@@ -204,17 +204,31 @@ def _ruiz_and_l2_rescale(
     return d_r, d_c
 
 
-def _attach_layout(mat: BlockSparseMatrix, params: PdhgParams,
-                   fast: bool) -> BlockSparseMatrix:
-    """The block-row kernel layout: always on a card (the kernels are the
-    only SpMV there), on request on the CPU (plain versions).  With
-    ``fast`` the bf16 copy for the f32 fast stream."""
+def _attach_layout(mat: BlockSparseMatrix, params: PdhgParams, fast: bool,
+                   csr: Optional[sp.spmatrix] = None) -> BlockSparseMatrix:
+    """The kernel layouts: always on a card (the kernels are the only SpMV
+    there), on request on the CPU (plain versions).  The block-row layout
+    always, since the batched product reads it; beside it the row layout
+    of the nonzeros, which then takes the 1-D products, where it reads at
+    most half the bytes of the stored blocks (``tiled_spmv.prefer_rows``).
+    That layout is built from ``csr``, the matrix the blocks hold (read
+    back from the blocks where it is not given), and counted as
+    ``row_layouts``.  With ``fast`` the bf16 copy of the blocks for the
+    f32 fast stream, where the blocks take the 1-D products."""
     if mat.device.type == "cpu" and not params.use_tiled_spmv:
         return mat
-    want_hi = (fast and params.use_tiled_spmv is not False
+    nnz = (int(torch.count_nonzero(mat.data)) if csr is None
+           else int(np.count_nonzero(csr.data)))
+    rows = tiled_spmv.prefer_rows(nnz, mat.padded_shape[0], mat.num_blocks,
+                                  mat.block_shape, mat.data.element_size())
+    want_hi = (fast and not rows and params.use_tiled_spmv is not False
                and mat.dtype == torch.float32
                and params.stream_precision in ("auto", "mixed"))
-    return mat.with_tiled(hi=want_hi)
+    mat = mat.with_tiled(hi=want_hi)
+    if rows:
+        count("row_layouts")
+        mat = mat.with_rows(csr)
+    return mat
 
 
 def build_device_problem(
@@ -263,8 +277,10 @@ def build_device_problem(
             # same block count as A, so both SpMV passes stream the same bytes.
             dev_at = dev_a.block_transpose()
             if pad_blocks_to_multiple_of == 1:
-                dev_a = _attach_layout(dev_a, params, fast=True)
-                dev_at = _attach_layout(dev_at, params, fast=True)
+                dev_a = _attach_layout(dev_a, params, fast=True,
+                                       csr=a_scaled)
+                dev_at = _attach_layout(dev_at, params, fast=True,
+                                        csr=a_scaled.T)
 
         def padv(v, fill, size):
             out = np.full(size, fill, dtype=np.float64)

@@ -156,8 +156,7 @@ def main() -> int:
             print(f"variant {name}: nvcc failed\n{err}")
             continue
         lib = ctypes.CDLL(str(so))
-        fnames, argtypes = _build._FUNCTIONS["block_spmm"]
-        for fname in fnames:
+        for fname, argtypes in _build._FUNCTIONS["block_spmm"].items():
             getattr(lib, fname).argtypes = argtypes
             getattr(lib, fname).restype = ctypes.c_int
         for row in ptxas_summary(out + err):

@@ -119,16 +119,48 @@ def test_solve_on_card_uses_both_kernels(cuda):
 
 
 @pytest.mark.gpu
-def test_f64_solve_on_card_uses_the_exact_kernel(cuda):
+@pytest.mark.parametrize("lp", ["random", "flow", "dense"])
+def test_f64_solve_on_card_uses_the_exact_kernel(cuda, lp):
+    """f64 LPs to OPTIMAL at eps 1e-8 with the objective of the port's CPU
+    f64 solve, each through the exact kernel its layout rule gives.  Low
+    fill (a random LP in one 128x128 block of 720 nonzeros, a
+    multicommodity flow LP): set-up gives A and Aᵀ the row layout
+    (``row_layouts`` counts 2), and every 1-D product runs the row kernel
+    and none the block kernels.  A dense LP at 8x128 blocks (half its
+    entries nonzero) keeps its blocks: every 1-D product runs
+    ``block_spmv_exact``, none the row kernel, and no row layout is
+    made."""
+    from ortools_tpu_torch.models.generators import multicommodity_flow_lp
     from ortools_tpu_torch.models.lp import random_lp
     from ortools_tpu_torch.pdlp import PdhgParams, solve
+    from ortools_tpu_torch.utils import tracing
     from ortools_tpu_torch.utils.status import TerminationReason
 
-    T.tiled_matvec.launches = T.tiled_matvec_fast.launches = 0
-    r = solve(random_lp(60, 40, density=0.3, seed=3),
-              PdhgParams(dtype=torch.float64))
+    qp = {"random": lambda: random_lp(60, 40, density=0.3, seed=3),
+          "flow": lambda: multicommodity_flow_lp(12, 40, 4, seed=3),
+          "dense": lambda: random_lp(256, 256, density=0.5, seed=11)}[lp]()
+    params = PdhgParams(dtype=torch.float64, eps_optimal_absolute=1e-8,
+                        eps_optimal_relative=1e-8,
+                        **({"block_shape": (8, 128)} if lp == "dense"
+                           else {}))
+    before = T.launch_counts()
+    layouts = tracing.counters().get("row_layouts", 0)
+    r = solve(qp, params)
+    torch.cuda.synchronize()
+    exact, fast, spmm, rows = (a - b for a, b in
+                               zip(T.launch_counts(), before))
+    made = tracing.counters().get("row_layouts", 0) - layouts
+    if lp == "dense":
+        assert made == 0
+        assert exact > 0 and rows == fast == spmm == 0
+    else:
+        assert made == 2
+        assert rows > 0 and exact == fast == spmm == 0
     assert r.termination_reason == TerminationReason.OPTIMAL
-    assert T.tiled_matvec.launches > 0 and T.tiled_matvec_fast.launches == 0
+    cpu = solve(qp, params, device="cpu")
+    assert cpu.termination_reason == TerminationReason.OPTIMAL
+    assert abs(r.primal_objective - cpu.primal_objective) <= 1e-6 * (
+        1 + abs(cpu.primal_objective))
 
 
 @pytest.mark.gpu
@@ -142,6 +174,121 @@ def test_misaligned_input_raises_on_card(cuda):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fn(mat.tiled, x)
         assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The row kernel
+# ---------------------------------------------------------------------------
+
+
+def _flow_matrix(transpose):
+    """The benchmark's flow LP shape at 200 commodities: columns of 3
+    nonzeros, conservation rows of about 47, capacity rows of 200; or its
+    transpose (rows of 3)."""
+    from ortools_tpu_torch.models.generators import multicommodity_flow_lp
+
+    a = multicommodity_flow_lp(30, 700, 200, seed=0).constraint_matrix
+    return a.T.tocsr() if transpose else a
+
+
+def _skewed_rows():
+    """400 x 1000: rows of 900, 129 and 128 nonzeros, 297 of 0-69 and 100
+    empty (chip_smoke.py's)."""
+    rng = np.random.default_rng(5)
+    lengths = np.concatenate([[900, 129, 128], rng.integers(0, 70, 297),
+                              np.zeros(100, np.int64)])
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    cols = np.concatenate([rng.choice(1000, k, replace=False)
+                           for k in lengths])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(lengths.size, 1000))
+
+
+ROW_CASES = {
+    "flow A": lambda: _flow_matrix(False),
+    "flow A^T": lambda: _flow_matrix(True),
+    "skewed": _skewed_rows,
+    "skewed^T": lambda: _skewed_rows().T.tocsr(),
+    "one row": lambda: sp.random(1, 1000, density=0.9, random_state=1,
+                                 format="csr"),
+    "one column": lambda: sp.random(1000, 1, density=0.9, random_state=2,
+                                    format="csr"),
+    "empty": lambda: sp.csr_matrix((50, 60)),
+}
+
+
+def _row_pair(a, dtype, device):
+    mat = TMatrix.from_scipy(a, dtype=dtype, device=device)
+    return mat.with_tiled().with_rows(a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ROW_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_row_kernel_matches_plain_on_card(cuda, case, dtype, tol):
+    """The row kernel against its plain version and the block kernel, on
+    teams of every width, empty and padded rows, rows longer than a
+    team's pass, one-row, one-column and empty matrices; a repeated
+    launch is bit-identical and each launch is counted."""
+    a = ROW_CASES[case]()
+    mat = _row_pair(a, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(mat.padded_shape[1], generator=g,
+                    dtype=torch.float64).to(dtype=dtype, device=cuda)
+    before = T.rows_matvec.launches
+    y = mat.matvec(x)
+    y2 = T.rows_matvec(mat.rows, x)
+    ref = T.rows_matvec_plain(mat.rows, x)
+    blk = T.tiled_matvec(mat.tiled, x)
+    torch.cuda.synchronize()
+    assert T.rows_matvec.launches == before + 2
+    scale = 1 + float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= tol * scale
+    assert float((y - blk).abs().max()) <= tol * scale
+    assert torch.equal(y, y2)
+    assert not y[a.shape[0]:].any()
+
+
+@pytest.mark.gpu
+def test_row_kernel_bad_input_raises_on_card(cuda):
+    mat = _row_pair(_skewed_rows(), torch.float32, cuda)
+    before = T.rows_matvec.launches
+    n = mat.padded_shape[1]
+    with pytest.raises(TypeError):
+        T.rows_matvec(mat.rows, torch.ones(n, device=cuda,
+                                           dtype=torch.float64))
+    with pytest.raises(ValueError, match=f"length-{n}"):
+        T.rows_matvec(mat.rows, torch.ones(n + 1, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        T.rows_matvec(mat.rows, torch.ones(2 * n, device=cuda)[::2])
+    assert T.rows_matvec.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_kernel_in_a_graph_is_bit_identical_on_card(cuda, dtype):
+    """A captured launch of the row kernel replays the eager launch bit
+    for bit, replay after replay, for A and Aᵀ."""
+    for transpose in (False, True):
+        mat = _row_pair(_flow_matrix(transpose), dtype, cuda)
+        g = torch.Generator(device="cpu").manual_seed(1)
+        x = torch.randn(mat.padded_shape[1], generator=g,
+                        dtype=torch.float64).to(dtype=dtype, device=cuda)
+        eager = T.rows_matvec(mat.rows, x)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            T.rows_matvec(mat.rows, x)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = T.rows_matvec(mat.rows, x)
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
 
 
 # ---------------------------------------------------------------------------

@@ -412,4 +412,189 @@ def test_spmm_counter_untouched_on_cpu():
     before = T.launch_counts()
     tm.with_tiled().matvec(torch.ones(4, tm.padded_shape[1],
                                       dtype=torch.float64))
-    assert T.launch_counts() == before and len(before) == 3
+    assert T.launch_counts() == before and len(before) == 4
+
+
+# ---------------------------------------------------------------------------
+# The row layout (make_row_layout) and its plain product
+# ---------------------------------------------------------------------------
+
+
+def _flow_matrix():
+    """A multicommodity flow matrix of the benchmark's shape, small: every
+    column holds 3 nonzeros (tail, head, capacity), the conservation rows
+    about 47 and the 141 capacity rows 130, longer than a 32-lane team's
+    pass of 128."""
+    from ortools_tpu_torch.models.generators import multicommodity_flow_lp
+
+    return multicommodity_flow_lp(6, 141, 130, seed=0).constraint_matrix
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_row_product_matches_scipy_and_the_blocks(dtype, tol, transpose):
+    """A and Aᵀ of the flow matrix: ``matvec`` takes the row layout once
+    attached, and agrees with scipy and with the block product."""
+    a = _flow_matrix()
+    assert np.all(np.diff(a.tocsc().indptr) == 3)
+    lengths = np.diff(a.indptr)
+    assert np.median(lengths) == 47 and lengths.max() == 130
+    mat = TMatrix.from_scipy(a, dtype=dtype, device="cpu")
+    if transpose:
+        mat, a = mat.block_transpose(), a.T.tocsr()
+    mat = mat.with_tiled().with_rows(a)
+    x = np.random.default_rng(2).standard_normal(mat.padded_shape[1])
+    xt = torch.tensor(x, dtype=dtype)
+    y = mat.matvec(xt)
+    np.testing.assert_array_equal(y.numpy(),
+                                  T.rows_matvec_plain(mat.rows, xt).numpy())
+    blocks = T.tiled_matvec_plain(mat.tiled, xt).double().numpy()
+    ref = a @ xt.double().numpy()[:a.shape[1]]
+    scale = 1 + np.abs(ref).max()
+    assert np.abs(y.double().numpy()[:a.shape[0]] - ref).max() <= tol * scale
+    assert np.abs(y.double().numpy() - blocks).max() <= tol * scale
+    assert not y[a.shape[0]:].any()
+
+
+def _skewed_rows(seed=5):
+    """400 x 1000: rows of 900, 129 and 128 nonzeros, 297 of 0-69 and 100
+    empty (chip_smoke.py's)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([[900, 129, 128], rng.integers(0, 70, 297),
+                              np.zeros(100, np.int64)])
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    cols = np.concatenate([rng.choice(1000, k, replace=False)
+                           for k in lengths])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(lengths.size, 1000))
+
+
+ROW_EDGES = {
+    "skewed": _skewed_rows,
+    "skewed^T": lambda: _skewed_rows().T.tocsr(),
+    "one row": lambda: sp.random(1, 1000, density=0.9, random_state=1,
+                                 format="csr"),
+    "one column": lambda: sp.random(1000, 1, density=0.9, random_state=2,
+                                    format="csr"),
+    "empty": lambda: sp.csr_matrix((50, 60)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_EDGES))
+def test_row_layout_edges(case):
+    """Empty rows, padded rows and columns, rows longer than a team's
+    pass, one-row, one-column and empty matrices: the layout lists every
+    padded row once, in its bin, and the plain product is scipy's."""
+    a = ROW_EDGES[case]()
+    mat = TMatrix.from_scipy(a, dtype=torch.float64, device="cpu")
+    lay = mat.with_rows(a).rows
+    m_pad, n_pad = mat.padded_shape
+    assert lay.num_rows == m_pad and lay.num_cols == n_pad
+    assert lay.nnz == a.nnz and lay.values.dtype == torch.float64
+    order = lay.order.numpy()
+    assert lay.order.dtype == lay.row_ptr.dtype == lay.cols.dtype == torch.int32
+    np.testing.assert_array_equal(np.sort(order), np.arange(m_pad))
+    # stored bin by bin, each the matrix row order[i] with its nonzeros
+    lengths = np.diff(lay.row_ptr.numpy())
+    np.testing.assert_array_equal(lengths[order < a.shape[0]],
+                                  np.diff(a.indptr)[order[order < a.shape[0]]])
+    assert not lengths[order >= a.shape[0]].any()
+    # widest teams first: each row's team is the fewest lanes that leave
+    # each at most ROW_LANE_NNZ nonzeros, 32 at most
+    lanes = np.repeat(T.ROW_LANES, lay.bin_rows)
+    need = -(-lengths // T.ROW_LANE_NNZ)
+    assert np.all((need <= lanes) | (lanes == 32))
+    assert np.all((need > lanes // 2) | (lanes == 1))
+    assert sum(lay.bin_rows) == m_pad
+    x = np.random.default_rng(3).standard_normal(n_pad)
+    y = T.rows_matvec(lay, torch.tensor(x)).numpy()
+    np.testing.assert_allclose(y[:a.shape[0]], a @ x[:a.shape[1]],
+                               rtol=1e-12, atol=1e-12)
+    assert not y[a.shape[0]:].any()
+    # the layout read back from the blocks is the same
+    again = mat.with_rows().rows
+    for name in ("row_ptr", "cols", "values", "order"):
+        assert torch.equal(getattr(lay, name), getattr(again, name)), name
+
+
+@pytest.mark.parametrize("lengths,order,bin_rows", [
+    # 400 nonzeros: a warp; 47: 12 lanes at 4 -> 16; 3 and empty: one lane
+    ([3, 47, 400, 0, 47], [2, 1, 4, 0, 3], (1, 2, 0, 0, 0, 2)),
+    # the edges of each bin, 4 a lane: a warp past 64 nonzeros, each bin
+    # in row order
+    ([4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129],
+     [9, 10, 11, 7, 8, 5, 6, 3, 4, 1, 2, 0], (3, 2, 2, 2, 2, 1)),
+    ([], [], (0, 0, 0, 0, 0, 0)),
+])
+def test_row_bins_give_each_row_its_team(lengths, order, bin_rows):
+    got_order, got_bins = T.row_bins(np.array(lengths, dtype=np.int64))
+    np.testing.assert_array_equal(got_order, order)
+    assert got_order.dtype == np.int32 and got_bins == bin_rows
+
+
+def test_prefer_rows_at_half_the_block_bytes():
+    # 1 block of 8x128 f64 is 8192 bytes; half of it is 4096
+    rows = 8
+    fits = (4096 - 4 * (rows + 1)) // 12
+    assert T.prefer_rows(fits, rows, 1, (8, 128), 8)
+    assert not T.prefer_rows(fits + 1, rows, 1, (8, 128), 8)
+
+
+def _built(qp, dtype, block_shape=None):
+    from ortools_tpu_torch.pdlp import PdhgParams
+    from ortools_tpu_torch.pdlp import solver as S
+    from ortools_tpu_torch.utils import tracing
+
+    before = tracing.counters().get("row_layouts", 0)
+    prob = S.build_device_problem(
+        qp, PdhgParams(dtype=dtype, use_tiled_spmv=True,
+                       block_shape=block_shape), "cpu")
+    return prob, tracing.counters().get("row_layouts", 0) - before
+
+
+@pytest.mark.parametrize("case", ["flow f64", "flow f32", "bench blocks",
+                                  "density 0.5"])
+def test_route_rule_attaches_rows_to_low_fill_matrices(case):
+    """Set-up attaches the row layout to A and Aᵀ of the low-fill flow LP
+    (counted twice as ``row_layouts``; no bf16 copy, so the fast stream
+    is the exact product) and to neither of a bench-shaped LP of full
+    8x128 blocks or a density-0.5 LP; the block layout is always there."""
+    from ortools_tpu_torch.models.generators import block_random_lp
+    from ortools_tpu_torch.models.generators import multicommodity_flow_lp
+    from ortools_tpu_torch.models.lp import random_lp
+
+    dtype = torch.float32 if case != "flow f64" else torch.float64
+    if case.startswith("flow"):
+        qp = multicommodity_flow_lp(6, 141, 130, seed=0)
+    elif case == "bench blocks":
+        qp = block_random_lp(1024, 1024, 64, (8, 128), seed=0)
+    else:
+        qp = random_lp(256, 256, density=0.5, seed=11)
+    # the bench and the density-0.5 tests give the block shape
+    prob, row_layouts = _built(qp, dtype, None if case.startswith("flow")
+                               else (8, 128))
+    rows = case.startswith("flow")
+    assert row_layouts == (2 if rows else 0)
+    for mat in (prob.a, prob.at):
+        assert mat.tiled is not None
+        assert (mat.rows is not None) == rows
+        if rows:
+            assert mat.rows.values.dtype == dtype
+            assert not mat.has_fast_stream
+            x = torch.ones(mat.padded_shape[1], dtype=dtype)
+            assert torch.equal(mat.matvec_fast(x), mat.matvec(x))
+            assert torch.equal(mat.matvec(x),
+                               T.rows_matvec_plain(mat.rows, x))
+    if case == "flow f64":
+        a = qp.constraint_matrix
+        assert prob.a.rows.nnz == prob.at.rows.nnz == a.nnz
+
+
+def test_row_launch_counter_untouched_on_cpu():
+    a = _skewed_rows()
+    lay = TMatrix.from_scipy(a, dtype=torch.float64,
+                             device="cpu").with_rows(a).rows
+    before = T.launch_counts()
+    T.rows_matvec(lay, torch.ones(lay.num_cols, dtype=torch.float64))
+    assert T.launch_counts() == before and T.rows_matvec.launches == before[3]
