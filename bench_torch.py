@@ -509,10 +509,11 @@ def print_peak_memory(device: torch.device) -> None:
 
 
 def print_launches() -> None:
-    exact, fast, spmm, rows = tiled_spmv.launch_counts()
+    exact, fast, spmm, rows, rows_spmm = tiled_spmv.launch_counts()
     print("# launches: " + json.dumps({
         "block_spmv_exact": exact, "block_spmv_fast": fast,
-        "block_spmm_exact": spmm, "block_spmv_rows": rows}),
+        "block_spmm_exact": spmm, "block_spmv_rows": rows,
+        "block_spmm_rows": rows_spmm}),
         file=sys.stderr, flush=True)
 
 

@@ -419,6 +419,13 @@ ROWS = dict(
     source="ortools_tpu_torch/ops/csrc/block_spmv.cu",
     replaces="none: the row layout's 1-D product, for low-fill matrices",
     wrapper=tiled_spmv.rows_matvec, plain=tiled_spmv.rows_matvec_plain)
+# The batched product over the same row layout: no TPU kernel and no XLA
+# code matches it either.
+ROWS_SPMM = dict(
+    name="block_spmm_rows", route="cuda",
+    source="ortools_tpu_torch/ops/csrc/block_spmm.cu",
+    replaces="none: the row layout's batched product, for low-fill matrices",
+    wrapper=tiled_spmv.rows_matmat, plain=tiled_spmv.rows_matmat_plain)
 # The benchmark's configurations whose matrices take the row layout
 # (benchmark/configs; their instance 0, made by the benchmark's generator).
 ROW_CONFIGS = (("mcf.solve", "mcnd-c-30-700-400-open-f64", torch.float64),
@@ -433,6 +440,9 @@ ROW_CONFIGS = (("mcf.solve", "mcnd-c-30-700-400-open-f64", torch.float64),
 BOUNDARY_FILLS = (1 / 16, 1 / 8, 1 / 4, 1 / 3, 1 / 2)
 # block rows, blocks in each, block columns
 BOUNDARY_SHAPES = ((8192, 1, 128), (2048, 4, 128), (128, 64, 8192))
+# The batched rule's boundary (tiled_spmv.prefer_rows_batched): the same
+# matrices at these batches.
+BOUNDARY_BATCHES = (8, 64)
 BATCH = 64  # bench.py's batched configuration (bench.py:255-293)
 BATCH_MAJORS = 8
 MODERATE_BATCH = 8
@@ -456,7 +466,7 @@ def phase(title: str) -> None:
 
 
 def reset_counters() -> None:
-    for k in list(KERNELS.values()) + [SPMM, ROWS]:
+    for k in list(KERNELS.values()) + [SPMM, ROWS, ROWS_SPMM]:
         k["wrapper"].launches = 0
 
 
@@ -465,7 +475,15 @@ def _launches() -> dict:
     out = {k: v["wrapper"].launches for k, v in KERNELS.items()}
     out[SPMM["name"]] = SPMM["wrapper"].launches
     out[ROWS["name"]] = ROWS["wrapper"].launches
+    out[ROWS_SPMM["name"]] = ROWS_SPMM["wrapper"].launches
     return out
+
+
+def batched_products(launches: dict) -> int:
+    """The batched products among ``launches``: the block SpMM's and the
+    batched row kernel's (a low-fill matrix takes the second)."""
+    return (launches.get(SPMM["name"], 0)
+            + launches.get(ROWS_SPMM["name"], 0))
 
 
 def exact_spmvs(launches: dict) -> int:
@@ -669,14 +687,48 @@ def check_rows(label: str, csr, shape, errs: dict) -> None:
         errs[ROWS["name"]] = max(errs.get(ROWS["name"], 0.0), err)
 
 
-def check_built(label: str, mat: BlockSparseMatrix, errs: dict) -> None:
-    """The SpMVs of a built problem's matrix against their plain versions:
-    the block kernels on its blocks, and the row kernel on its nonzeros
-    where set-up gave it the row layout (its 1-D products then run there
-    alone)."""
+def check_rows_spmm(label: str, csr, shape, batches, errs: dict) -> None:
+    """The batched row kernel against its plain version on the row layout
+    of ``csr`` padded to ``shape``, at each of ``batches`` instances, in
+    f32 and f64, each run twice and bit-identical; records the largest
+    error."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        lay = tiled_spmv.make_row_layout(csr, shape[0], shape[1], dtype,
+                                         "cuda")
+        out = []
+        for batch in batches:
+            g = torch.Generator(device="cpu").manual_seed(5)
+            x = torch.randn(batch, shape[1], generator=g,
+                            dtype=torch.float64).to(dtype=dtype,
+                                                    device="cuda")
+            y = ROWS_SPMM["wrapper"](lay, x)
+            y2 = ROWS_SPMM["wrapper"](lay, x)
+            ref = ROWS_SPMM["plain"](lay, x)
+            torch.cuda.synchronize()
+            err, scale = _rel_err(y, ref)
+            out.append(f"B={batch} {err:.3e} (<= {tol * scale:.3e})")
+            require(err <= tol * scale, f"{label}: the batched row kernel "
+                    f"disagrees with its plain version in {dtype} at B = "
+                    f"{batch}")
+            require(torch.equal(y, y2), f"{label}: a repeated launch of the "
+                    f"batched row kernel is not bit-identical")
+            errs[ROWS_SPMM["name"]] = max(errs.get(ROWS_SPMM["name"], 0.0),
+                                          err)
+        print(f"{label:34s} batched rows {str(dtype)[6:]}: "
+              + ", ".join(out), flush=True)
+
+
+def check_built(label: str, mat: BlockSparseMatrix, errs: dict,
+                batch: int = 8) -> None:
+    """The products of a built problem's matrix against their plain
+    versions: the block kernels on its blocks, and the row kernels (1-D
+    and, at ``batch`` instances, batched) on its nonzeros where set-up
+    gave it the row layout."""
     check_matrix(label, mat.without_tiled(), errs)
     if mat.rows is not None:
         check_rows(label, mat.to_csr(), mat.padded_shape, errs)
+        check_rows_spmm(label, mat.to_csr(), mat.padded_shape, (batch,),
+                        errs)
 
 
 def _fold(into: dict, errs: dict) -> None:
@@ -707,6 +759,7 @@ def rows_against_plain() -> dict:
                      ("rows empty 50x60", sp.csr_matrix((50, 60)))):
         shape = tuple(-(-max(d, 1) // 128) * 128 for d in a.shape)
         check_rows(label, a, shape, errs)
+        check_rows_spmm(label, a, shape, (1, 3, BATCH), errs)
     return errs
 
 
@@ -798,6 +851,77 @@ def row_times() -> dict:
     return out
 
 
+def rows_spmm_times() -> dict:
+    """The batched row kernel at B = ``BATCH`` on the node LPs' matrices
+    (A and Aᵀ of the f32 configuration of ``ROW_CONFIGS``, scaled as the
+    solve scales them), L2-cold: its time against its plain version (held
+    to it first), the block SpMM on the same matrix, torch's CSR product
+    with a dense [N, B] matrix (cuSPARSE SpMM, the library yardstick; the
+    port never calls it), and the benchmark's bound and roofline share
+    (work nnz·s + B·(m + n)·s)."""
+    out = {}
+    for cell, config, dtype in ROW_CONFIGS:
+        if dtype != torch.float32:
+            continue
+        qp = benchmark_qp(config)
+        prob = pdlp_solver.build_device_problem(
+            qp, PdhgParams(dtype=dtype), "cuda")
+        s = torch.tensor([], dtype=dtype).element_size()
+        work = (qp.constraint_matrix.nnz * s
+                + BATCH * (qp.num_constraints + qp.num_variables) * s)
+        bound_ms = work / PEAK_BYTES_PER_S * 1e3
+        for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+            label = f"{cell} {orient} B={BATCH}"
+            lay = mat.rows
+            require(lay is not None, f"{label}: no row layout attached")
+            require(tiled_spmv.prefer_rows_batched(
+                lay.nnz, lay.num_rows, mat.num_blocks, mat.block_shape, s,
+                BATCH), f"{label}: the rule keeps the blocks")
+            x = _batch_x(mat, BATCH, dtype, 6)
+            y = ROWS_SPMM["wrapper"](lay, x)
+            ref = ROWS_SPMM["plain"](lay, x)
+            blk = tiled_spmv.tiled_matmat(mat.tiled, x)
+            torch.cuda.synchronize()
+            err, scale = _rel_err(y, ref)
+            berr, _ = _rel_err(y, blk)
+            require(err <= 1e-5 * scale and berr <= 1e-5 * scale,
+                    f"{label}: the batched row kernel disagrees ({err:.3e} "
+                    f"from its plain version, {berr:.3e} from the block "
+                    f"SpMM)")
+            lays = _row_cold_copies(lay)
+            args = [(t, x) for t in lays]
+            ms = time_launches(ROWS_SPMM["wrapper"], args, 200)
+            warm_ms = time_launches(ROWS_SPMM["wrapper"], args[:1], 200)
+            plain_ms = time_launches(ROWS_SPMM["plain"], args[:2], 10)
+            blocks = _cold_copies(mat.tiled)
+            block_ms = time_launches(tiled_spmv.tiled_matmat,
+                                     [(t, x) for t in blocks], 50)
+            xt = x.t().contiguous()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="Sparse")
+                csrs = [torch.sparse_csr_tensor(
+                    t.row_ptr, t.cols, t.values, size=mat.padded_shape)
+                    for t in lays]
+                library_ms = time_launches(lambda a, v: a @ v,
+                                           [(c, xt) for c in csrs], 50)
+            share = bound_ms / ms
+            print(f"{label:26s} {lay.nnz} nonzeros: batched row kernel "
+                  f"{ms:.4f} ms (L2-warm {warm_ms:.4f}), bound "
+                  f"{bound_ms:.4f} ms ({work} bytes), roofline share "
+                  f"{share:.1%}; block SpMM {block_ms:.4f} ms "
+                  f"({mat.num_blocks} blocks of {mat.block_shape}); plain "
+                  f"{plain_ms:.4f} ms; torch CSR SpMM {library_ms:.4f} ms; "
+                  f"error {err:.3e}", flush=True)
+            out[label] = dict(ms=ms, warm_ms=warm_ms, bound_ms=bound_ms,
+                              bytes=work, roofline_share=share,
+                              block_ms=block_ms, plain_ms=plain_ms,
+                              library_ms=library_ms, max_abs_err=err)
+            del lays, blocks, csrs
+        del prob
+        torch.cuda.empty_cache()
+    return out
+
+
 def boundary_matrix(block_rows: int, per_row: int, gn: int, fill: float,
                     seed: int) -> sp.csr_matrix:
     """``block_rows`` x ``gn`` blocks of 8x128, ``per_row`` of them stored
@@ -880,9 +1004,48 @@ def boundary_times() -> dict:
                         row_bytes=row_bytes, block_bytes=block_bytes,
                         rows_ms=rows_ms, block_ms=block_ms, fast_ms=fast_ms,
                         rule_rows=rule, max_abs_err=err)
-                    del mat, lay, lays, blocks
+                    del lays, blocks
+                    for batch in BOUNDARY_BATCHES:
+                        out[f"{label} B={batch}"] = boundary_spmm(
+                            f"{label} B={batch}", mat, lay, s, batch)
+                    del mat, lay
             torch.cuda.empty_cache()
     return out
+
+
+def boundary_spmm(label: str, mat: BlockSparseMatrix, lay, s: int,
+                  batch: int) -> dict:
+    """Both batched kernels on one boundary matrix at ``batch``
+    instances, L2-cold, the row kernel held to its plain version first:
+    the bytes each moves through L2 by the batched rule's count, their
+    ratio, the times and theirs, and what the rule gives."""
+    x = _batch_x(mat, batch, lay.values.dtype, 9)
+    y = ROWS_SPMM["wrapper"](lay, x)
+    ref = ROWS_SPMM["plain"](lay, x)
+    torch.cuda.synchronize()
+    tol = 1e-12 if s == 8 else 1e-5
+    err, scale = _rel_err(y, ref)
+    require(err <= tol * scale, f"{label}: the batched row kernel disagrees "
+            f"({err:.3e} from its plain version)")
+    lays = [(t, x) for t in _row_cold_copies(lay)]
+    blocks = [(t, x) for t in _cold_copies(mat.tiled)]
+    rows_ms = min(time_launches(ROWS_SPMM["wrapper"], lays, 50)
+                  for _ in range(2))
+    block_ms = min(time_launches(tiled_spmv.tiled_matmat, blocks, 50)
+                   for _ in range(2))
+    bm, bn = mat.block_shape
+    row_bytes = (lay.nnz * (s + 4 + batch * s) + 4 * (lay.num_rows + 1))
+    block_bytes = mat.num_blocks * bn * (bm + batch) * s
+    rule = tiled_spmv.prefer_rows_batched(lay.nnz, lay.num_rows,
+                                          mat.num_blocks, (bm, bn), s, batch)
+    print(f"{label:40s} bytes rows/blocks {row_bytes}/{block_bytes} = "
+          f"{row_bytes / block_bytes:.3f}; batched row kernel {rows_ms:.4f} "
+          f"ms, block SpMM {block_ms:.4f} ms: time rows/blocks "
+          f"{rows_ms / block_ms:.3f}; the rule gives "
+          f"{'rows' if rule else 'blocks'}", flush=True)
+    return dict(row_bytes=row_bytes, block_bytes=block_bytes,
+                rows_ms=rows_ms, block_ms=block_ms, rule_rows=rule,
+                max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -1635,6 +1798,7 @@ def batched_main_path(bench_qp) -> tuple:
     iters_first = _accepted(backend)
     launches = {k: v["wrapper"].launches for k, v in KERNELS.items()}
     launches[SPMM["name"]] = SPMM["wrapper"].launches
+    launches[ROWS_SPMM["name"]] = ROWS_SPMM["wrapper"].launches
     peak = torch.cuda.max_memory_allocated()
     capture_first = pdlp_solver.capture_seconds
     syncs_first = pdlp_solver.host_syncs
@@ -1676,6 +1840,10 @@ def batched_main_path(bench_qp) -> tuple:
     require(launches[SPMM["name"]] > 0
             and launches["block_spmv_exact"] > 0,
             f"a kernel of the batched path was not launched: {launches}")
+    # dense 8x128 blocks: the rule keeps the block SpMM
+    require(launches[ROWS_SPMM["name"]] == 0,
+            f"the bench LP's batched products took the row layout: "
+            f"{launches}")
     # The branch-and-bound raises only the iteration limit (x4 a retry):
     # the backend keeps its solver, so the call captures nothing.
     solver = backend._solver
@@ -2044,7 +2212,7 @@ def node_lp_kernels(name: str, prob, errs: dict) -> None:
         bm, bn = mat.block_shape
         plain = mat.without_tiled()
         tag = f"{name} {label} ({bm}x{bn})"
-        check_built(tag, mat, errs)
+        check_built(tag, mat, errs, MipParams().node_batch_size)
         check_spmm(tag, plain, MipParams().node_batch_size, errs)
 
 
@@ -2100,8 +2268,8 @@ def pdhg_mips(errs: dict, cases=PDHG_MIPS) -> dict:
         require(mip_feasible(run["qp"], r.solution),
                 f"{name}: the solution fails the numpy check: "
                 f"{mip_violations(run['qp'], r.solution)}")
-        require(cnt["batches"] > 0 and cnt["launches"][SPMM["name"]] > 0,
-                f"{name}: no node-LP batch went through the SpMM")
+        require(cnt["batches"] > 0 and batched_products(cnt["launches"]) > 0,
+                f"{name}: no node-LP batch went through an SpMM")
         largest = max(largest, cnt["largest_batch"])
         node_lp_kernels(name, run["prob"], errs)
     require(largest > 1, "no OPTIMAL solve sent a batch of several node LPs")
@@ -2166,7 +2334,7 @@ def mip_path(errs: dict) -> dict:
     launches = pdhg_mips(errs)
     _add(launches, default_mip(errs))
     print(f"launches on the MIP path: {launches}", flush=True)
-    require(exact_spmvs(launches) > 0 and launches[SPMM["name"]] > 0,
+    require(exact_spmvs(launches) > 0 and batched_products(launches) > 0,
             f"a kernel of the MIP path was not launched: {launches}")
     return launches
 
@@ -2995,7 +3163,7 @@ def assignment_packing(errs: dict) -> dict:
     require(log.backends[:1] == ["PdhgNodeBackend"],
             f"u{U120['items']}: the auto rule chose {log.backends[:1]}")
     require(exact_spmvs(cnt["launches"]) > 0
-            and cnt["launches"][SPMM["name"]] > 0,
+            and batched_products(cnt["launches"]) > 0,
             f"u{U120['items']}: a kernel was not launched: "
             f"{cnt['launches']}")
     if not cnt["fj_calls"]:
@@ -4805,7 +4973,7 @@ def slice14(stream_s: dict) -> tuple:
     # The benches' LPs are dense 8x128 blocks: every block kernel runs,
     # and the layout rule leaves the row kernel out.
     require(all(total[k] > 0 for k in list(KERNELS) + [SPMM["name"]])
-            and total[ROWS["name"]] == 0,
+            and total[ROWS["name"]] == total.get(ROWS_SPMM["name"], 0) == 0,
             f"a kernel was not launched by the benches: {total}")
     print(f"phase 16: {time.perf_counter() - t0:.1f} s; launches {total}",
           flush=True)
@@ -4973,7 +5141,7 @@ def onchip_search(errs: dict) -> dict:
             "the device FJ found no cover at or below the cutoff")
     require(any(ln.startswith("# cover check: passed") for ln in notes),
             "the device FJ's cover did not pass the numpy check")
-    require(launches[SPMM["name"]] > 0, "the node LPs launched no SpMM")
+    require(batched_products(launches) > 0, "the node LPs launched no SpMM")
     qp = multicommodity_flow_lp(**ONCHIP_LP)
     prob = pdlp_solver.build_device_problem(
         qp, PdhgParams(dtype=torch.float32, stream_precision="exact"),
@@ -5098,6 +5266,7 @@ def main() -> int:
     del bench_prob
     torch.cuda.empty_cache()
     row_ms = row_times()
+    rows_spmm_ms = rows_spmm_times()
     boundary = boundary_times()
 
     phase("6. the rest of the solve: ADAPTIVE_HEURISTIC, Malitsky-Pock, "
@@ -5208,7 +5377,23 @@ def main() -> int:
         name=name, route=ROWS["route"], source=ROWS["source"],
         replaces=ROWS["replaces"], max_abs_err=errs[name],
         mesh_shard_max_abs_err=shard_errs.get(name, 0.0), times=row_ms,
-        boundary=boundary,
+        boundary={k: v for k, v in boundary.items() if " B=" not in k},
+        mip_path_launches=mip_launches.get(name, 0),
+        frontend_launches=front_launches.get(name, 0),
+        mesh_path_launches=mesh_launches.get(name, 0),
+        host_front_ends_launches=host_launches.get(name, 0),
+        cp_sat_launches=cp_launches.get(name, 0),
+        slice12_launches=slice12_launches.get(name, 0),
+        slice13_launches=slice13_launches.get(name, 0),
+        phase16_launches=slice14_launches.get(name, 0),
+        phase17_launches=slice15_launches.get(name, 0), ok=True))
+    name = ROWS_SPMM["name"]
+    kernels.append(dict(
+        name=name, route=ROWS_SPMM["route"], source=ROWS_SPMM["source"],
+        replaces=ROWS_SPMM["replaces"], max_abs_err=errs[name],
+        times=rows_spmm_ms, batch=BATCH,
+        boundary={k: v for k, v in boundary.items() if " B=" in k},
+        batched_path_launches=batch_launches.get(name, 0),
         mip_path_launches=mip_launches.get(name, 0),
         frontend_launches=front_launches.get(name, 0),
         mesh_path_launches=mesh_launches.get(name, 0),

@@ -12,7 +12,7 @@ that every module and public name has its counterpart):
 - the device code: the single-device PDLP solve (``pdlp.solve``) with both
   of its block-sparse SpMV kernels (``ops/csrc/block_spmv.cu``), the
   batched solve (``pdlp.batched.solve_batch``,
-  ``mip.node_lp.PdhgNodeBackend``) with its block SpMM kernel
+  ``mip.node_lp.PdhgNodeBackend``) with its block and row SpMM kernels
   (``ops/csrc/block_spmm.cu``), the multi-device solve on
   ``torch.distributed`` (``parallel``, ``graft_entry``), the batched
   branch-and-bound MIP solve (``mip.solve``) and the device feasibility

@@ -9,7 +9,7 @@ warm-started dual simplex embedded in the search
 two-speed design:
 
 - ``PdhgNodeBackend`` — batched PDHG (``pdlp/batched.py``): B node LPs
-  advance together, and every product is a block SpMM on the card.  The
+  advance together, and every product is a batched SpMM on the card.  The
   scale path.
 - ``SimplexNodeBackend`` — one persistent host ``RevisedSimplex`` (the
   port's copy of ``glop/simplex.py``, with the native core of

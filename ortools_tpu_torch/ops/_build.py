@@ -1,10 +1,10 @@
 """Build and bind the CUDA kernels of ``ops/csrc``.
 
 ``nvcc`` compiles each source of ``csrc`` (``block_spmv.cu``: the block-row
-SpMV kernels; ``block_spmm.cu``: the batched block-row SpMM) for
-``sm_90a`` into a shared library with a plain C interface under
-``build/kernels/`` at the root of the checkout, at first use; each library
-is loaded with ctypes.  ``build`` starts one ``nvcc`` per source, all at
+SpMV kernels and the row SpMV; ``block_spmm.cu``: the batched block-row
+SpMM and the batched row SpMM) for ``sm_90a`` into a shared library with
+a plain C interface under ``build/kernels/`` at the root of the checkout,
+at first use; each library is loaded with ctypes.  ``build`` starts one ``nvcc`` per source, all at
 once.  A file name carries a hash of its source and the flags, so an edited
 source is rebuilt and concurrent builds never see a half-written library
 (each writes a private file and renames it into place).  ``load`` is the
@@ -43,6 +43,9 @@ _ROWS_SPMV = [_P] * 7 + [_I] * 2 + [_P]
 # items, row_ptr, block_cols, data, x, y; num_items, num_block_rows, bm,
 # bn, batch, n, m, device; stream
 _BLOCK_SPMM = [_P] * 6 + [_I] * 8 + [_P]
+# order, row_ptr, cols, values, x, xt (scratch), y, bin_rows (host);
+# num_rows, batch, n, device; stream
+_ROWS_SPMM = [_P] * 8 + [_I] * 4 + [_P]
 # Each library's functions and their argument types.
 _FUNCTIONS = {
     "block_spmv": {"block_spmv_exact_f32": _BLOCK_SPMV,
@@ -51,7 +54,9 @@ _FUNCTIONS = {
                    "block_spmv_rows_f32": _ROWS_SPMV,
                    "block_spmv_rows_f64": _ROWS_SPMV},
     "block_spmm": {"block_spmm_exact_f32": _BLOCK_SPMM,
-                   "block_spmm_exact_f64": _BLOCK_SPMM},
+                   "block_spmm_exact_f64": _BLOCK_SPMM,
+                   "block_spmm_rows_f32": _ROWS_SPMM,
+                   "block_spmm_rows_f64": _ROWS_SPMM},
 }
 
 _libs: dict = {}

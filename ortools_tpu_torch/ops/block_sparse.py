@@ -19,7 +19,9 @@ CPU, it is the plain gather + batched mat-vec + ``index_add_`` of
 ``_block_matvec``.  ``matvec`` of a batch of vectors
 (``[B, N]``, the layout of the batched solve) is the block SpMM in the same
 way: the ``block_spmm_exact`` kernel on a card, its plain version on the
-CPU.  ``matmat`` takes the JAX method's ``[N, k]`` layout.
+CPU; or, where the row layout is attached and moves fewer bytes at that
+batch (``tiled_spmv.prefer_rows_batched``), the batched row kernel
+``block_spmm_rows``.  ``matmat`` takes the JAX method's ``[N, k]`` layout.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ class BlockSparseMatrix:
     # matvec launches the CUDA kernel (its plain version on the CPU).
     tiled: Optional[BlockRowLayout] = None
     # Row layout of the nonzeros (ops/tiled_spmv.py); when present, 1-D
-    # matvec launches the row kernel instead, and the blocks serve the
-    # batched product.
+    # matvec launches the row kernel instead, and the batched product
+    # takes the batched row kernel where it moves fewer bytes than the
+    # blocks (tiled_spmv.prefer_rows_batched).
     rows: Optional[RowLayout] = None
 
     # -- properties -----------------------------------------------------
@@ -205,6 +208,11 @@ class BlockSparseMatrix:
         """A @ x with x padded to N; returns padded length-M vector.  For
         x of [B, N] (B vectors), returns [B, M]: row b is A @ x[b]."""
         if x.dim() == 2:
+            if self.rows is not None and tiled_spmv.prefer_rows_batched(
+                    self.rows.nnz, self.rows.num_rows, self.num_blocks,
+                    self.block_shape, self.data.element_size(),
+                    int(x.shape[0])):
+                return tiled_spmv.rows_matmat(self.rows, x)
             if self.tiled is not None:
                 return tiled_spmv.tiled_matmat(self.tiled, x)
             self._require_cpu(x)

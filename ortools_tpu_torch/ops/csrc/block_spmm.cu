@@ -1,5 +1,7 @@
 // Block-row SpMM of the batched PDLP solve: Y = X A^T, that is
-// Y[b, :] = A X[b, :] for B instances at once.  X is [B, N] and Y is [B, M],
+// Y[b, :] = A X[b, :] for B instances at once; and, at the end of the
+// file, the same product over the row layout of a low-fill matrix
+// (block_spmm_kernel_rows).  X is [B, N] and Y is [B, M],
 // both contiguous with the batch leading (the layout of the batched state).
 // A is the block-row layout of block_spmv.cu: dense (bm x bn) blocks sorted
 // by (row, col), data [num_blocks, bm, bn] row-major, block_cols per block,
@@ -57,8 +59,11 @@
 // fixed order; no atomics, so repeated launches are bit-identical.  The
 // kernel launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -444,6 +449,305 @@ int launch(const int4* items, const int32_t* row_ptr,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// The row layout: Y = X A^T over the nonzeros alone
+// ---------------------------------------------------------------------------
+//
+// block_spmm_kernel_rows<T> (T = float, double) replaces no TPU
+// kernel and no XLA code: the TPU stores blocks only.  It serves the
+// batched products of matrices of low fill, which carry the row layout of
+// block_spmv.cu's row kernel (tiled_spmv.make_row_layout: values in the
+// matrix's dtype, int32 column indices, int32 row pointers over the padded
+// rows, the rows stored bin by bin, each bin in matrix order, with the
+// matrix row of each in order), where tiled_spmv.prefer_rows_batched says
+// it moves fewer bytes than the blocks.  On the 55,520 x 52,520 LP
+// relaxation of a class C network design (260,520 nonzeros; rows of 2,
+// 26-42 and 101) the 8x128 blocks are 1.17% full: 89 MB of f32 a product,
+// and the block kernel gathers 712 MB more of x segments at B = 64.
+//
+// Bound: bytes.  The work is the nonzeros once and X and Y once (28.7 MB
+// at B = 64 in f32, 8.6 us); 2 flops a nonzero and instance.  What costs
+// is the gather: X is batch-leading, so the B values of one column lie
+// N apart, and a column read for all instances at once is B sectors of 32
+// bytes for B * 4 useful bytes.
+//
+// The design, one launch: the thread blocks first copy X into a scratch
+// X^T [N, B] (tiles of 64 instances x 32 columns through shared memory,
+// both sides coalesced), meet at a grid-wide barrier (a cooperative
+// launch: every thread block resident), then each nonzero reads one
+// contiguous row of X^T, B values, out of L2: about 67 MB through L2 for
+// the relaxation at B = 64.  The other design timed, direct gathers of X
+// (one sector an instance and nonzero, about 530 MB of sectors), was
+// twice as slow at B = 64 (PERF.md).  Then a thread block takes a unit of
+// consecutive stored rows of one bin, 4 << i rows in bin i (the bins of
+// tiled_spmv.row_bins, rows of up to 4 * (32 >> i) nonzeros, so about 128
+// nonzeros a warp), and 64 instances (the batch is cut into tiles of 64);
+// each warp takes 1 << i consecutive rows of it.  A warp's lanes hold instances lane and lane +
+// 32; it loads 32 nonzeros (values and columns) at a time, one a lane,
+// then gathers the X rows of kRowsGather of them before their sums, so
+// kRowsGather * 2 loads are in flight a lane.  The ends of its rows sit in
+// its lanes (one row pointer a lane), so a row's end is a shuffle away,
+// and a finished row's sums go to a tile in shared memory [row][instance].
+// At the unit's end the thread block writes the tile to Y, each instance's
+// rows as one run (rows of a bin are in matrix order, so a unit's rows
+// are mostly consecutive rows of Y).  Every padded row is written: an
+// empty row gets zeros.
+//
+// Numbers (NVIDIA H100 80GB HBM3, 700 W, L2-cold, B = 64, f32; PERF.md,
+// Findings): the relaxation's A 46.0 us and A^T 38.9 us against 8.6 us for
+// the work; the block kernel took 232 and 482 us, torch's CSR product
+// with a dense X^T 51.6 and 47.7.  The direct design took 108 and 112 us
+// (25 us both at B = 8, where this one takes 34 and 27).  Of the
+// staged 46 us, the launch, the copy and the barrier take about 10 (9.5
+// at B = 8), the stores of Y about 8, the gathers of X^T 4-5; the rest is
+// each unit's chain of dependent loads.  Measured and not kept: 8, 4 or
+// 32 nonzeros gathered at once (A 52.8, 51.8, 48.1 us; A^T 43.2, 42.4,
+// 50.7), 32 instances a unit (46.5, 48.2), registers capped for 6 or 8
+// resident thread blocks (60.8 and 90.4 us for A).
+//
+// Deterministic output: a row's sums run over its nonzeros in order, in
+// one lane an instance, and each Y entry is written once; no atomics, so
+// repeated launches are bit-identical.  The kernel launches on the
+// caller's stream, allocates nothing (the wrapper gives the scratch), and
+// returns cudaGetLastError().
+
+constexpr int kRowsThreads = 128;  // threads of a thread block
+constexpr int kRowsWarps = kRowsThreads / 32;
+constexpr int kRowsBins = 6;       // tiled_spmv.ROW_LANES: 32 >> i lanes
+constexpr int kRowsTile = 64;      // instances of a unit
+constexpr int kRowsPerLane = kRowsTile / 32;
+constexpr int kRowsGather = 16;    // nonzeros a warp gathers at once
+// Stored rows of a unit at most (bin 5), and the tile's row pitch.
+constexpr int kRowsUnitRows = kRowsWarps << (kRowsBins - 1);
+constexpr int kRowsPitch = kRowsTile + 1;
+static_assert(kRowsTile % 32 == 0 && (kRowsTile * 32) % kRowsThreads == 0 &&
+                  32 % kRowsWarps == 0 && kRowsTile * 33 <= kRowsUnitRows *
+                  kRowsPitch, "the tiles");
+
+struct RowsBins {
+  int start[kRowsBins + 1];  // bin i: units [start[i], start[i + 1])
+  int first[kRowsBins];      // its stored rows: [first[i], first[i] + rows[i])
+  int rows[kRowsBins];
+};
+
+__device__ __forceinline__ float rows_fma(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double rows_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kRowsThreads)
+block_spmm_kernel_rows(const int32_t* __restrict__ order,
+                       const int32_t* __restrict__ row_ptr,
+                       const int32_t* __restrict__ cols,
+                       const T* __restrict__ values, const T* __restrict__ x,
+                       T* __restrict__ xt, T* __restrict__ y, RowsBins bins,
+                       int batch, int n, int m) {
+  extern __shared__ __align__(16) unsigned char rows_smem[];
+  T* tile = reinterpret_cast<T*>(rows_smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+
+  // X [batch, n] into X^T [n, batch], a tile of kRowsTile instances x 32
+  // columns at a time: each thread loads its kTrans values of the tile
+  // (addresses clamped, no branch, so all are in flight), then each warp
+  // writes whole columns of X^T, kRowsTile values of one column a store.
+  constexpr int kTrans = kRowsTile * 32 / kRowsThreads;
+  const long long tn = (n + 31) / 32;
+  const long long tiles = tn * ((batch + kRowsTile - 1) / kRowsTile);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int c0 = static_cast<int>(t % tn) * 32;
+    const int b0 = static_cast<int>(t / tn) * kRowsTile;
+    const int c = min(c0 + lane, n - 1);
+    T v[kTrans];
+#pragma unroll
+    for (int i = 0; i < kTrans; ++i) {
+      const int b = min(b0 + warp + kRowsWarps * i, batch - 1);
+      v[i] = x[static_cast<size_t>(b) * n + c];
+    }
+#pragma unroll
+    for (int i = 0; i < kTrans; ++i) {
+      tile[(warp + kRowsWarps * i) * 33 + lane] = v[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 32 / kRowsWarps; ++i) {
+      const int cc = warp + kRowsWarps * i;
+      if (c0 + cc < n) {
+#pragma unroll
+        for (int j = 0; j < kRowsPerLane; ++j) {
+          const int b = lane + 32 * j;
+          if (b0 + b < batch) {
+            xt[static_cast<size_t>(c0 + cc) * batch + b0 + b] =
+                tile[b * 33 + cc];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  __threadfence();
+  cooperative_groups::this_grid().sync();
+
+  const long long units = bins.start[kRowsBins];
+  const long long work = units * ((batch + kRowsTile - 1) / kRowsTile);
+  for (long long w = blockIdx.x; w < work; w += gridDim.x) {
+    const int u = static_cast<int>(w % units);
+    const int b0 = static_cast<int>(w / units) * kRowsTile;
+    // The last bin that starts at or before u (an empty bin starts where
+    // the next one does, so it is passed over).
+    int bin = 0;
+#pragma unroll
+    for (int i = 1; i < kRowsBins; ++i) bin += u >= bins.start[i];
+    const int unit_rows = kRowsWarps << bin;
+    const int first = bins.first[bin] + (u - bins.start[bin]) * unit_rows;
+    const int bin_end = bins.first[bin] + bins.rows[bin];
+    const int nrows = min(unit_rows, bin_end - first);
+    const int r0 = first + (warp << bin);
+    const int nr = min(1 << bin, bin_end - r0);  // this warp's rows
+    if (nr > 0) {
+      const int start = __ldg(row_ptr + r0);
+      const int ends = lane < nr ? __ldg(row_ptr + r0 + lane + 1) : 0;
+      const int end = __shfl_sync(kAll, ends, nr - 1);
+      T* out = tile + (r0 - first) * kRowsPitch + lane;
+      int bs[kRowsPerLane];  // this lane's instances, clamped
+#pragma unroll
+      for (int j = 0; j < kRowsPerLane; ++j) {
+        bs[j] = min(b0 + lane + 32 * j, batch - 1);
+      }
+      T acc[kRowsPerLane];
+#pragma unroll
+      for (int j = 0; j < kRowsPerLane; ++j) acc[j] = T(0);
+      int cur = 0;  // the warp's row being summed
+      int cur_end = __shfl_sync(kAll, ends, 0);
+      // 32 nonzeros, one a lane, loaded a pass ahead of their gathers
+      int c_next = 0;
+      T v_next = T(0);
+      if (start < end) {
+        const int k = min(start + lane, end - 1);
+        c_next = __ldg(cols + k);
+        v_next = __ldg(values + k);
+      }
+      for (int k0 = start; k0 < end; k0 += 32) {
+        const int c = c_next;
+        const T v = v_next;
+        if (k0 + 32 < end) {
+          const int k = min(k0 + 32 + lane, end - 1);
+          c_next = __ldg(cols + k);
+          v_next = __ldg(values + k);
+        }
+        const int cnt = min(32, end - k0);
+#pragma unroll
+        for (int g0 = 0; g0 < 32; g0 += kRowsGather) {
+          if (g0 >= cnt) break;
+          T xs[kRowsGather][kRowsPerLane];
+#pragma unroll
+          for (int q = 0; q < kRowsGather; ++q) {
+            const int cq = __shfl_sync(kAll, c, g0 + q);
+#pragma unroll
+            for (int j = 0; j < kRowsPerLane; ++j) {
+              xs[q][j] = __ldcg(xt + static_cast<size_t>(cq) * batch + bs[j]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kRowsGather; ++q) {
+            const int kk = k0 + g0 + q;
+            if (kk >= end) break;
+            while (kk >= cur_end) {  // rows that end before nonzero kk
+#pragma unroll
+              for (int j = 0; j < kRowsPerLane; ++j) {
+                out[cur * kRowsPitch + 32 * j] = acc[j];
+                acc[j] = T(0);
+              }
+              ++cur;
+              cur_end = __shfl_sync(kAll, ends, cur);
+            }
+            const T vq = __shfl_sync(kAll, v, g0 + q);
+#pragma unroll
+            for (int j = 0; j < kRowsPerLane; ++j) {
+              acc[j] = rows_fma(vq, xs[q][j], acc[j]);
+            }
+          }
+        }
+      }
+      for (; cur < nr; ++cur) {  // the last row, and empty rows after it
+#pragma unroll
+        for (int j = 0; j < kRowsPerLane; ++j) {
+          out[cur * kRowsPitch + 32 * j] = acc[j];
+          acc[j] = T(0);
+        }
+      }
+    }
+    __syncthreads();
+    // The unit's tile to Y: thread tid takes row tid % unit_rows of every
+    // (kRowsThreads / unit_rows)-th instance, so that neighbouring threads
+    // write neighbouring rows, each instance's rows as one run.
+    const int row = tid % unit_rows;
+    if (row < nrows) {
+      const int jn = min(kRowsTile, batch - b0);
+      T* yr = y + static_cast<size_t>(b0) * m + __ldg(order + first + row);
+      for (int j = tid / unit_rows; j < jn; j += 32 >> bin) {
+        yr[static_cast<size_t>(j) * m] = tile[row * kRowsPitch + j];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <class T>
+int launch_rows(const int32_t* order, const int32_t* row_ptr,
+                const int32_t* cols, const T* values, const T* x, T* xt, T* y,
+                const int32_t* bin_rows, int num_rows, int batch, int n,
+                int device, cudaStream_t stream) {
+  RowsBins bins;
+  long long units = 0;
+  long long first = 0;
+  bins.start[0] = 0;
+  for (int i = 0; i < kRowsBins; ++i) {
+    if (bin_rows[i] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    bins.first[i] = static_cast<int>(first);
+    bins.rows[i] = bin_rows[i];
+    first += bin_rows[i];
+    units += (bin_rows[i] + (kRowsWarps << i) - 1) / (kRowsWarps << i);
+    bins.start[i + 1] = static_cast<int>(units);
+  }
+  if (num_rows < 0 || first != num_rows || batch < 0 || n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_rows == 0 || batch == 0) return 0;
+  if (xt == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  auto kernel = block_spmm_kernel_rows<T>;
+  const int smem = kRowsUnitRows * kRowsPitch * static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Every thread block resident, for the barrier: as many as fit, or as
+  // many as there are tiles of the copy or units of the rows.
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kRowsThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles_b = (batch + kRowsTile - 1LL) / kRowsTile;
+  const long long tiles = ((n + 31LL) / 32) * tiles_b;
+  const long long grid = std::min<long long>(
+      std::max(units * tiles_b, tiles), static_cast<long long>(per_sm) * sms);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int m = num_rows;
+  void* args[] = {&order, &row_ptr, &cols, &values, &x, &xt,
+                  &y,     &bins,    &batch, &n,     &m};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(grid)),
+                                    dim3(kRowsThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the launch's CUDA
@@ -471,6 +775,31 @@ int block_spmm_exact_f64(const void* items, const int32_t* row_ptr,
   return launch<double>(static_cast<const int4*>(items), row_ptr, block_cols,
                         data, x, y, num_items, num_block_rows, bm, bn, batch,
                         n, m, device, static_cast<cudaStream_t>(stream));
+}
+
+// The row kernel: order, row_ptr, cols and values are make_row_layout's
+// (device), x is [batch, n] and y [batch, num_rows], both contiguous; xt is
+// a scratch of n * batch values for X^T (the staged design); bin_rows, the
+// rows of each of the six bins (32, 16, 8, 4, 2 and 1 lanes), is a host
+// array, read before the launch.
+int block_spmm_rows_f32(const int32_t* order, const int32_t* row_ptr,
+                        const int32_t* cols, const float* values,
+                        const float* x, float* xt, float* y,
+                        const int32_t* bin_rows, int num_rows, int batch,
+                        int n, int device, void* stream) {
+  return launch_rows<float>(order, row_ptr, cols, values, x, xt, y, bin_rows,
+                            num_rows, batch, n, device,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int block_spmm_rows_f64(const int32_t* order, const int32_t* row_ptr,
+                        const int32_t* cols, const double* values,
+                        const double* x, double* xt, double* y,
+                        const int32_t* bin_rows, int num_rows, int batch,
+                        int n, int device, void* stream) {
+  return launch_rows<double>(order, row_ptr, cols, values, x, xt, y,
+                             bin_rows, num_rows, batch, n, device,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

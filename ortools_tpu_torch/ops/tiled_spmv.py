@@ -36,6 +36,10 @@ for teams of 1 to 32 lanes), where it reads at most half the bytes of the
 stored blocks (``prefer_rows``).  ``rows_matvec`` launches
 ``block_spmv_rows`` (``csrc/block_spmv.cu``) on it, the exact 1-D product;
 its plain version gathers x and sums each row with ``index_add_``.
+``rows_matmat`` launches ``block_spmm_rows`` (``csrc/block_spmm.cu``), the
+product of a batch of vectors over the same layout, where it moves fewer
+bytes than the block SpMM (``prefer_rows_batched``); its plain version
+gathers the columns of X and sums each row with ``index_add_``.
 """
 
 from __future__ import annotations
@@ -274,6 +278,48 @@ def prefer_rows(nnz: int, num_rows: int, num_blocks: int, block_shape,
             <= num_blocks * bm * bn * value_bytes / 2)
 
 
+# The batched row kernel against the block SpMM: the row layout is taken
+# where its bytes through L2 are at most ROWS_BATCHED_SHARE of the blocks'
+# (``prefer_rows_batched``).
+ROWS_BATCHED_SHARE = 1.0
+
+
+def prefer_rows_batched(nnz: int, num_rows: int, num_blocks: int,
+                        block_shape, value_bytes: int, batch: int) -> bool:
+    """Whether the batched row kernel should take a product of ``batch``
+    vectors: its bytes through L2 against the block SpMM's, times
+    ``ROWS_BATCHED_SHARE``.  The blocks: every stored entry, and each
+    block's x segment for every instance (``bn * batch`` values), which
+    the block kernel gathers.  The rows: values and column indices of the
+    nonzeros, the row pointers, and for each nonzero the ``batch`` values
+    of its column of X, one row of the kernel's Xᵀ.  Both write Y once,
+    and the rows' staging reads X once more, neither counted.
+
+    The share comes from both kernels timed on the same matrices of 8x128
+    blocks and their transposes at fills of 1/16 to 1/2, at B = 8 and 64,
+    in f32 and f64 (``chip_smoke.py::boundary_times``; H100, L2-cold).
+    On rows of up to 64 nonzeros the times meet where the rows' bytes are
+    0.6-1.0 of the 8x128 blocks' (0.55-1.0 for their transposes at B = 8,
+    but 2.7-3.5 at B = 64: the block kernel's time on 128x8 blocks does
+    not follow their bytes).  A share of 0.75 would lose the least over
+    the matrices swept, but it would give the blocks to the Aᵀ of a
+    multicommodity flow LP (30 nodes, 520 arcs, 100 commodities) at
+    B = 64, whose bytes read 0.78 and whose rows take 0.34 of the blocks'
+    time; at 1.0 the short rows swept lose at most 1.43 times (a 128x8
+    transpose at B = 8), as at 0.75.  On 1,024 rows of 512 to 4,096
+    nonzeros, one warp each, the row kernel took 1.0-2.0 times the block
+    SpMM's time already at a third to a half of its bytes, and 2.0-2.5
+    times at 0.9 of them: no share keeps those on the blocks without
+    giving up the others.  The node LPs' relaxation reads 0.09 (A) and
+    0.52 (Aᵀ) at B = 64, and its row kernel takes 0.20 and 0.08 of the
+    block SpMM's time."""
+    bm, bn = block_shape
+    s = value_bytes
+    blocks = num_blocks * bn * (bm + batch) * s
+    rows = nnz * (s + 4 + batch * s) + 4 * (num_rows + 1)
+    return rows <= ROWS_BATCHED_SHARE * blocks
+
+
 def make_row_layout(csr, num_rows: int, num_cols: int, dtype: torch.dtype,
                     device) -> RowLayout:
     """The row layout of a scipy sparse matrix of at most ``num_rows`` x
@@ -370,6 +416,17 @@ def rows_matvec_plain(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
     rows = torch.repeat_interleave(t.order.long(), lengths)
     y = torch.zeros(t.num_rows, dtype=x.dtype, device=x.device)
     y.index_add_(0, rows, t.values * x.index_select(0, t.cols.long()))
+    return y
+
+
+def rows_matmat_plain(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``block_spmm_rows``: for X [B, N], each nonzero
+    times its column of X, summed into its row; returns [B, M]."""
+    lengths = (t.row_ptr[1:] - t.row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(t.order.long(), lengths)
+    y = torch.zeros(int(x.shape[0]), t.num_rows, dtype=x.dtype,
+                    device=x.device)
+    y.index_add_(1, rows, x.index_select(1, t.cols.long()) * t.values)
     return y
 
 
@@ -508,6 +565,29 @@ def tiled_matmat(t: BlockRowLayout, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _check_rows(t: RowLayout, x: torch.Tensor, batched: bool) -> None:
+    """Raise on what the row kernels do not take: x of the layout's dtype,
+    the padded length-N vector (or [B, N] with ``batched``), everything
+    contiguous on x's device, int32 indices."""
+    if x.dtype != t.values.dtype:
+        raise TypeError(f"x is {x.dtype}, the kernel takes {t.values.dtype}")
+    if batched:
+        if x.dim() != 2 or x.shape[1] != t.num_cols:
+            raise ValueError(f"x must be [B, {t.num_cols}] (B padded "
+                             f"vectors), got shape {tuple(x.shape)}")
+    elif x.dim() != 1 or x.shape[0] != t.num_cols:
+        raise ValueError(f"x must be the padded length-{t.num_cols} vector, "
+                         f"got shape {tuple(x.shape)}")
+    for name, v in (("x", x), ("values", t.values), ("row_ptr", t.row_ptr),
+                    ("cols", t.cols), ("order", t.order)):
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if any(v.dtype != torch.int32 for v in (t.row_ptr, t.cols, t.order)):
+        raise TypeError("row_ptr, cols and order must be int32")
+
+
 def rows_matvec(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
     """y = A x over the row layout, exact, in the matrix's dtype (f32 or
     f64); x is the padded length-N vector, y the padded length-M
@@ -525,19 +605,7 @@ def rows_matvec(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
         fn = lib.block_spmv_rows_f64
     else:
         raise TypeError(f"no row kernel for {t.values.dtype}")
-    if x.dtype != t.values.dtype:
-        raise TypeError(f"x is {x.dtype}, the kernel takes {t.values.dtype}")
-    if x.dim() != 1 or x.shape[0] != t.num_cols:
-        raise ValueError(f"x must be the padded length-{t.num_cols} vector, "
-                         f"got shape {tuple(x.shape)}")
-    for name, v in (("x", x), ("values", t.values), ("row_ptr", t.row_ptr),
-                    ("cols", t.cols), ("order", t.order)):
-        if v.device != x.device:
-            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if any(v.dtype != torch.int32 for v in (t.row_ptr, t.cols, t.order)):
-        raise TypeError("row_ptr, cols and order must be int32")
+    _check_rows(t, x, batched=False)
     y = torch.empty(t.num_rows, dtype=x.dtype, device=x.device)
     bins = (ctypes.c_int * len(ROW_LANES))(*t.bin_rows)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -554,19 +622,61 @@ def rows_matvec(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def rows_matmat(t: RowLayout, x: torch.Tensor) -> torch.Tensor:
+    """Y = X Aᵀ over the row layout, that is Y[b] = A X[b], exact, in the
+    matrix's dtype (f32 or f64); x is [B, N] (B padded vectors,
+    contiguous), y is [B, M]."""
+    if x.device.type == "cpu":
+        return rows_matmat_plain(t, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    from ortools_tpu_torch.ops import _build
+
+    lib = _build.library("block_spmm")
+    if t.values.dtype == torch.float32:
+        fn = lib.block_spmm_rows_f32
+    elif t.values.dtype == torch.float64:
+        fn = lib.block_spmm_rows_f64
+    else:
+        raise TypeError(f"no row kernel for {t.values.dtype}")
+    _check_rows(t, x, batched=True)
+    batch = int(x.shape[0])
+    y = torch.empty(batch, t.num_rows, dtype=x.dtype, device=x.device)
+    # the kernel's Xᵀ, [N, B]
+    xt = torch.empty(t.num_cols * batch, dtype=x.dtype, device=x.device)
+    bins = (ctypes.c_int * len(ROW_LANES))(*t.bin_rows)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(ctypes.c_void_p(t.order.data_ptr()),
+             ctypes.c_void_p(t.row_ptr.data_ptr()),
+             ctypes.c_void_p(t.cols.data_ptr()),
+             ctypes.c_void_p(t.values.data_ptr()),
+             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(xt.data_ptr()),
+             ctypes.c_void_p(y.data_ptr()),
+             ctypes.cast(bins, ctypes.c_void_p), t.num_rows, batch,
+             t.num_cols, x.device.index, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    rows_matmat.launches += 1
+    return y
+
+
 tiled_matvec.launches = 0
 tiled_matvec_fast.launches = 0
 tiled_matmat.launches = 0
 rows_matvec.launches = 0
+rows_matmat.launches = 0
 
 
-def launch_counts() -> Tuple[int, int, int, int]:
-    """(exact, fast, SpMM, row) kernel launches counted so far."""
+def launch_counts() -> Tuple[int, int, int, int, int]:
+    """(exact, fast, SpMM, row, row SpMM) kernel launches counted so
+    far."""
     return (tiled_matvec.launches, tiled_matvec_fast.launches,
-            tiled_matmat.launches, rows_matvec.launches)
+            tiled_matmat.launches, rows_matvec.launches,
+            rows_matmat.launches)
 
 
-def count_launches(exact: int, fast: int, spmm: int, rows: int) -> None:
+def count_launches(exact: int, fast: int, spmm: int, rows: int,
+                   rows_spmm: int) -> None:
     """Add launches that the wrappers' code did not make itself: a CUDA
     graph's replay launches the kernels it captured, while the capture,
     which ran the wrappers, launched none (its counts are taken back with
@@ -575,3 +685,4 @@ def count_launches(exact: int, fast: int, spmm: int, rows: int) -> None:
     tiled_matvec_fast.launches += fast
     tiled_matmat.launches += spmm
     rows_matvec.launches += rows
+    rows_matmat.launches += rows_spmm

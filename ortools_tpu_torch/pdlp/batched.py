@@ -4,8 +4,9 @@ own variable bounds, solved together (port of
 
 Branch-and-bound nodes differ from the root LP only in variable bounds, so
 a batch of B node LPs is a leading axis over the variable bounds and the
-state, with the matrix shared: every product becomes a block SpMM (the
-``block_spmm_exact`` kernel on a card), and one major advances all B
+state, with the matrix shared: every product becomes a batched product
+(on a card the ``block_spmm_exact`` kernel, or ``block_spmm_rows`` over the
+row layout of a low-fill matrix), and one major advances all B
 solves.  Used by ``mip/node_lp.py::PdhgNodeBackend`` for node bounding and
 usable directly for scenario batches.
 

@@ -34,7 +34,8 @@ What differs from the JAX module:
   (``pdlp/batched.py``).  Here the device functions take a leading batch
   axis themselves: vectors [B, N], per-instance scalars [B, 1], reductions
   over the last axis (``ops/df32.py``), products of [B, N] inputs through
-  the block SpMM; a 1-D call makes the same torch calls as before.
+  the batched products (the block SpMM, or the row layout's batched kernel
+  on a low-fill matrix); a 1-D call makes the same torch calls as before.
 - Random vectors come from ``torch.Generator`` (other numbers than
   ``jax.random`` for the same seed): the power-iteration start ``v0``
   (seed 0; it may be passed in) and the projection vectors of
@@ -1006,8 +1007,8 @@ class _Majors:
     A batch (a state of [B, N] vectors and [B, 1] scalars, a problem with
     [B, N] variable bounds) runs on the same code: each instance's slots
     stop changing anything once it has its iterations, its products go
-    through the block SpMM, the statistics come to the host as one [K, B]
-    copy, and a major is done when its slowest instance is.
+    through the batched kernels, the statistics come to the host as one
+    [K, B] copy, and a major is done when its slowest instance is.
     """
 
     def __init__(self, prob: DeviceProblem, params: PdhgParams, psum=None):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The batched block-SpMM kernel alone at the bench shape, on one card.
 
-    python3 scripts/torch_spmm_probe.py [TREE] [--check] [--rates]
+    python3 scripts/torch_spmm_probe.py [TREE] [--check] [--rates] [--rows]
         [--variant NAME:CONST=VALUE[,CONST=VALUE...]] [--patch NAME OLD NEW]
 
 ``TREE`` is the root of a checkout (by default this one).  Its
@@ -18,6 +18,13 @@ kernel against its plain version on every shape (``chip_smoke``'s
 kernels, what the SpMM moves end to end: the moderate LPs of phase 4
 (iterations and objectives), the single path's stream rates (phase 5) and
 the batched main path with its rates and device profile (phase 7).
+
+``--rows`` times the batched row kernel (``block_spmm_rows``) instead, on
+the row layouts of the benchmark's node-LP relaxation (``ROWS_CONFIG``, A
+and Aᵀ as the solve scales them) at B = 8 and 64 in f32 and f64: held to
+its plain version and run twice, bit-identical; then L2-cold and L2-warm
+beside the block kernel on the same matrix and the benchmark's bound
+(``nnz·s + B·(m + n)·s``); then captured in a CUDA graph and replayed.
 
 ``--variant`` builds a copy of ``block_spmm.cu`` with the named
 ``constexpr int`` constants changed into ``build/spmm_variants/``, prints
@@ -45,6 +52,81 @@ from pathlib import Path
 BATCH = 64
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}  # f32, f64 outside the tensor cores
+
+
+# The benchmark's configuration whose batched products take the row layout.
+ROWS_CONFIG = "mcnd-c-30-520-100-relax-f32"
+
+
+def rows_probe(cs, T, S, PdhgParams, torch, variants) -> None:
+    """The batched row kernel of each variant on the relaxation's A and
+    Aᵀ (see the module's docstring)."""
+    qp = cs.benchmark_qp(ROWS_CONFIG)
+    prob = S.build_device_problem(qp, PdhgParams(dtype=torch.float32),
+                                  "cuda")
+    nnz = qp.constraint_matrix.nnz
+    from ortools_tpu_torch.ops import _build
+
+    for name, _, _, lib in variants:
+        _build._libs["block_spmm"] = lib
+        for dtype, vbytes, tol in ((torch.float32, 4, 1e-5),
+                                   (torch.float64, 8, 1e-12)):
+            for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+                mat = dataclasses.replace(
+                    mat, data=mat.data.to(dtype),
+                    rows=mat.rows._replace(values=mat.rows.values.to(dtype)),
+                    tiled=None).with_tiled()
+                lay = mat.rows
+                m, n = mat.padded_shape
+                for batch in (8, BATCH):
+                    x = cs._batch_x(mat, batch, dtype, 2)
+                    y = T.rows_matmat(lay, x)
+                    y2 = T.rows_matmat(lay, x)
+                    ref = T.rows_matmat_plain(lay, x)
+                    err, scale = cs._rel_err(y, ref)
+                    ok = err <= tol * scale and torch.equal(y, y2)
+                    lays = cs._row_cold_copies(lay)
+                    ms = cs.time_launches(T.rows_matmat,
+                                          [(t, x) for t in lays], 200)
+                    warm = cs.time_launches(T.rows_matmat, [(lay, x)], 200)
+                    blocks = cs._cold_copies(mat.tiled)
+                    block_ms = cs.time_launches(
+                        T.tiled_matmat, [(t, x) for t in blocks], 50)
+                    work = nnz * vbytes + batch * (m + n) * vbytes
+                    b_ms = work / PEAK_BYTES_PER_S * 1e3
+                    rule = T.prefer_rows_batched(
+                        lay.nnz, lay.num_rows, mat.num_blocks,
+                        mat.block_shape, vbytes, batch)
+                    print(f"rows {name:12s} {str(dtype)[6:]:7s} {orient:3s} "
+                          f"B={batch:2d}: kernel {ms * 1e3:.2f} us (L2-warm "
+                          f"{warm * 1e3:.2f} us), bound {b_ms * 1e3:.2f} us "
+                          f"({b_ms / ms:.1%}); block kernel "
+                          f"{block_ms * 1e3:.2f} us; rule "
+                          f"{'rows' if rule else 'blocks'}; err {err:.2e} "
+                          f"{'ok' if ok else 'WRONG'}", flush=True)
+                    del lays, blocks
+    for name, _, _, lib in variants:
+        _build._libs["block_spmm"] = lib
+        for orient, mat in (("A", prob.a), ("A^T", prob.at)):
+            lay = mat.rows
+            x = cs._batch_x(mat, BATCH, torch.float32, 3)
+            eager = T.rows_matmat(lay, x)
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                T.rows_matmat(lay, x)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = T.rows_matmat(lay, x)
+            same = True
+            for _ in range(3):
+                out.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                same = same and torch.equal(out, eager)
+            print(f"rows {name:12s} float32 {orient:3s} graph: "
+                  f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
 
 
 def bound(mat, vbytes: int):
@@ -82,13 +164,17 @@ def build_variant(root: Path, name: str, consts: dict):
 
 
 def ptxas_summary(report: str) -> list:
-    """(kernel instantiation, registers, spill bytes) of each SpMM kernel."""
+    """(kernel instantiation, registers, spill bytes) of each SpMM kernel,
+    the block kernel's and the row kernel's."""
     rows, name, spill = [], None, 0
     for line in report.splitlines():
         m = re.search(r"block_spmm_kernelI([fd])Li(\d+)ELi(\d+)E", line)
         if m:
             name = f"{'f32' if m.group(1) == 'f' else 'f64'} " \
                    f"{m.group(2)}x{m.group(3)}"
+        m = re.search(r"block_spmm_kernel_rowsI([fd])E", line)
+        if m:
+            name = f"{'f32' if m.group(1) == 'f' else 'f64'} rows"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
@@ -105,6 +191,7 @@ def main() -> int:
                     default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--rates", action="store_true")
+    ap.add_argument("--rows", action="store_true")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--patch", action="append", nargs=3, default=[],
                     metavar=("NAME", "OLD", "NEW"))
@@ -163,6 +250,9 @@ def main() -> int:
             print(f"ptxas {name} %s: %d registers, %d bytes spilled" % row)
         variants.append((name, kernel, sched, lib))
 
+    if args.rows:
+        rows_probe(cs, T, S, PdhgParams, torch, variants)
+        return 0
     qp = block_random_lp(**cs.BENCH)
     prob = S.build_device_problem(qp, dataclasses.replace(
         PdhgParams(**cs.BENCH_PARAMS), stream_precision="exact"), "cuda")

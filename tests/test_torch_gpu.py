@@ -147,15 +147,15 @@ def test_f64_solve_on_card_uses_the_exact_kernel(cuda, lp):
     layouts = tracing.counters().get("row_layouts", 0)
     r = solve(qp, params)
     torch.cuda.synchronize()
-    exact, fast, spmm, rows = (a - b for a, b in
-                               zip(T.launch_counts(), before))
+    exact, fast, spmm, rows, rows_spmm = (a - b for a, b in
+                                          zip(T.launch_counts(), before))
     made = tracing.counters().get("row_layouts", 0) - layouts
     if lp == "dense":
         assert made == 0
-        assert exact > 0 and rows == fast == spmm == 0
+        assert exact > 0 and rows == fast == spmm == rows_spmm == 0
     else:
         assert made == 2
-        assert rows > 0 and exact == fast == spmm == 0
+        assert rows > 0 and exact == fast == spmm == rows_spmm == 0
     assert r.termination_reason == TerminationReason.OPTIMAL
     cpu = solve(qp, params, device="cpu")
     assert cpu.termination_reason == TerminationReason.OPTIMAL
@@ -289,6 +289,153 @@ def test_row_kernel_in_a_graph_is_bit_identical_on_card(cuda, dtype):
             graph.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, eager)
+
+
+# ---------------------------------------------------------------------------
+# The batched row kernel
+# ---------------------------------------------------------------------------
+
+
+def _census_rows(seed=6):
+    """3,000 columns and the node LP relaxation's row lengths: 300 rows of
+    2 nonzeros, 300 of 4, 40 of 26-42, 20 of 101 (longer than a pass of
+    32) and 10 empty, shuffled."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([np.full(300, 2), np.full(300, 4),
+                              rng.integers(26, 43, 40), np.full(20, 101),
+                              np.zeros(10, np.int64)])
+    lengths = rng.permutation(lengths)
+    rows = np.repeat(np.arange(lengths.size), lengths)
+    cols = np.concatenate([rng.choice(3000, k, replace=False)
+                           for k in lengths])
+    return sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                         shape=(lengths.size, 3000))
+
+
+ROWS_SPMM_CASES = {**ROW_CASES,
+                   "census": _census_rows,
+                   "census^T": lambda: _census_rows().T.tocsr(),
+                   "random": lambda: sp.random(900, 2500, density=0.004,
+                                               random_state=3,
+                                               format="csr")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ROWS_SPMM_CASES))
+@pytest.mark.parametrize("batch", [1, 8, 64, 70])
+def test_batched_row_kernel_matches_plain_on_card(cuda, case, batch):
+    """Y = X Aᵀ over the row layout against its plain version, within
+    1e-5·(1+‖Y‖∞) in f32 and 1e-12 in f64, on rows of 2, 4, 26-42 and 101
+    nonzeros, empty and padded rows, one-row, one-column and empty
+    matrices; every padded row is written (zeros); a repeated launch is
+    bit-identical and each launch is counted.  B = 70 takes two tiles of
+    64 instances."""
+    a = ROWS_SPMM_CASES[case]()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        mat = _row_pair(a, dtype, cuda)
+        g = torch.Generator(device="cpu").manual_seed(batch)
+        x = torch.randn(batch, mat.padded_shape[1], generator=g,
+                        dtype=torch.float64).to(dtype=dtype, device=cuda)
+        before = T.rows_matmat.launches
+        y = T.rows_matmat(mat.rows, x)
+        y2 = T.rows_matmat(mat.rows, x)
+        ref = T.rows_matmat_plain(mat.rows, x)
+        torch.cuda.synchronize()
+        assert T.rows_matmat.launches == before + 2
+        assert y.shape == (batch, mat.padded_shape[0]) and y.dtype == dtype
+        scale = 1 + float(ref.abs().max())
+        assert float((y - ref).abs().max()) <= tol * scale
+        assert torch.equal(y, y2)
+        assert not y[:, a.shape[0]:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_row_kernel_in_a_graph_on_card(cuda, dtype):
+    """A captured launch of the batched row kernel replays the eager one
+    bit for bit, replay after replay, and each replay adds the launch it
+    captured to the counters, as the solver's majors count them."""
+    for a in (_census_rows(), _census_rows().T.tocsr()):
+        mat = _row_pair(a, dtype, cuda)
+        g = torch.Generator(device="cpu").manual_seed(2)
+        x = torch.randn(64, mat.padded_shape[1], generator=g,
+                        dtype=torch.float64).to(dtype=dtype, device=cuda)
+        eager = T.rows_matmat(mat.rows, x)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            T.rows_matmat(mat.rows, x)
+        torch.cuda.current_stream().wait_stream(stream)
+        before = T.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = T.rows_matmat(mat.rows, x)
+        launches = tuple(a - b for a, b in zip(T.launch_counts(), before))
+        assert launches == (0, 0, 0, 0, 1)
+        T.count_launches(*(-n for n in launches))
+        for k in range(3):
+            out.zero_()
+            graph.replay()
+            T.count_launches(*launches)
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+            assert T.launch_counts()[4] == before[4] + k + 1
+
+
+@pytest.mark.gpu
+def test_batched_row_kernel_bad_input_raises_on_card(cuda):
+    mat = _row_pair(_census_rows(), torch.float32, cuda)
+    before = T.rows_matmat.launches
+    n = mat.padded_shape[1]
+    with pytest.raises(TypeError):
+        T.rows_matmat(mat.rows, torch.ones(2, n, device=cuda,
+                                           dtype=torch.float64))
+    with pytest.raises(ValueError, match=rf"\[B, {n}\]"):
+        T.rows_matmat(mat.rows, torch.ones(n, device=cuda))
+    with pytest.raises(ValueError, match=rf"\[B, {n}\]"):
+        T.rows_matmat(mat.rows, torch.ones(2, n + 1, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        T.rows_matmat(mat.rows, torch.ones(n, 2, device=cuda).t())
+    with pytest.raises(ValueError, match="is on cpu"):
+        T.rows_matmat(mat.rows._replace(cols=mat.rows.cols.cpu()),
+                      torch.ones(2, n, device=cuda))
+    assert T.rows_matmat.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lp", ["flow", "dense blocks"])
+def test_batched_products_take_the_layout_the_rule_gives_on_card(cuda, lp):
+    """Set-up's matrices on the card: the low-fill flow LP's batched
+    products go to the batched row kernel, one launch a product and no
+    block SpMM; an LP of dense 8x128 blocks (bench_torch's kind) gets no
+    row layout and keeps the block SpMM."""
+    from ortools_tpu_torch.models.generators import (block_random_lp,
+                                                     multicommodity_flow_lp)
+    from ortools_tpu_torch.pdlp import PdhgParams
+    from ortools_tpu_torch.pdlp import solver as S
+
+    if lp == "flow":
+        qp = multicommodity_flow_lp(30, 520, 100, seed=0)
+        params = PdhgParams(dtype=torch.float32)
+    else:
+        qp = block_random_lp(4096, 4096, 256, (8, 128), seed=0)
+        params = PdhgParams(dtype=torch.float32, block_shape=(8, 128))
+    prob = S.build_device_problem(qp, params, cuda)
+    for mat in (prob.a, prob.at):
+        assert (mat.rows is not None) == (lp == "flow")
+        x = torch.ones(64, mat.padded_shape[1], device=cuda)
+        before = T.launch_counts()
+        y = mat.matvec(x)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(T.launch_counts(), before))
+        if lp == "flow":
+            assert launches == (0, 0, 0, 0, 1)
+            ref = T.rows_matmat_plain(mat.rows, x)
+        else:
+            assert launches == (0, 0, 1, 0, 0)
+            ref = T.tiled_matmat_plain(mat.tiled, x)
+        scale = 1 + float(ref.abs().max())
+        assert float((y - ref).abs().max()) <= 1e-5 * scale
 
 
 # ---------------------------------------------------------------------------

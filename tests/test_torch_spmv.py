@@ -412,7 +412,7 @@ def test_spmm_counter_untouched_on_cpu():
     before = T.launch_counts()
     tm.with_tiled().matvec(torch.ones(4, tm.padded_shape[1],
                                       dtype=torch.float64))
-    assert T.launch_counts() == before and len(before) == 4
+    assert T.launch_counts() == before and len(before) == 5
 
 
 # ---------------------------------------------------------------------------
@@ -598,3 +598,115 @@ def test_row_launch_counter_untouched_on_cpu():
     before = T.launch_counts()
     T.rows_matvec(lay, torch.ones(lay.num_cols, dtype=torch.float64))
     assert T.launch_counts() == before and T.rows_matvec.launches == before[3]
+
+
+# ---------------------------------------------------------------------------
+# The batched product over the row layout (rows_matmat) and its rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("case", list(ROW_EDGES))
+def test_batched_row_product_matches_blocks_and_numpy(case, dtype, tol,
+                                                      batch):
+    """The plain batched row product ([B, N] -> [B, M]) against the plain
+    block SpMM and a dense NumPy product, on empty and padded rows, a long
+    row, one-row, one-column and empty matrices; the padded rows are
+    zeros."""
+    a = ROW_EDGES[case]()
+    mat = TMatrix.from_scipy(a, dtype=dtype, device="cpu").with_rows(a)
+    x = np.random.default_rng(batch).standard_normal(
+        (batch, mat.padded_shape[1]))
+    xt = torch.tensor(x, dtype=dtype)
+    y = T.rows_matmat(mat.rows, xt)
+    assert y.shape == (batch, mat.padded_shape[0]) and y.dtype == dtype
+    assert torch.equal(y, T.rows_matmat_plain(mat.rows, xt))
+    blocks = T.block_product_batched(
+        mat.data, mat.block_rows, mat.block_cols, xt,
+        mat.padded_shape[0] // mat.block_shape[0])
+    ref = x[:, :a.shape[1]] @ a.toarray().T
+    scale = 1 + np.abs(ref).max(initial=0.0)
+    got = y.double().numpy()
+    assert np.abs(got[:, :a.shape[0]] - ref).max(initial=0.0) <= tol * scale
+    assert np.abs(got - blocks.double().numpy()).max(initial=0.0) <= (
+        tol * scale)
+    assert not y[:, a.shape[0]:].any()
+
+
+# (nnz, rows of the row layout, blocks, block shape, value bytes, batch):
+# the benchmark's node-LP relaxation (class C 30,520,100, f32, B = 64) at
+# 8x128 (A) and 128x8 (Aᵀ), 1.17% full, and bench_torch's LP of dense
+# 8x128 blocks (16384², 4,096 blocks) and its block transpose.
+BATCHED_RULE_CASES = {
+    "relaxation A": ((260520, 55552, 21727, (8, 128), 4, 64), True),
+    "relaxation A^T": ((260520, 52608, 21727, (128, 8), 4, 64), True),
+    "dense blocks A": ((4194304, 16384, 4096, (8, 128), 4, 64), False),
+    "dense blocks A^T": ((4194304, 16384, 4096, (128, 8), 4, 64), False),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCHED_RULE_CASES))
+def test_batched_rule_on_the_census_shapes(case):
+    args, rows = BATCHED_RULE_CASES[case]
+    assert T.prefer_rows_batched(*args) == rows
+
+
+def test_batched_rule_counts_the_gathers():
+    """One 8x128 f32 block at B = 8: the blocks move 1024 entries and 8
+    instances of one 128-entry segment; the rows 8 bytes a nonzero, its
+    column for each instance and the row pointers."""
+    blocks = 128 * (8 + 8) * 4
+    rows = 8
+    fits = int((T.ROWS_BATCHED_SHARE * blocks - 4 * (rows + 1))
+               // (4 + 4 + 8 * 4))
+    assert T.prefer_rows_batched(fits, rows, 1, (8, 128), 4, 8)
+    assert not T.prefer_rows_batched(fits + 1, rows, 1, (8, 128), 4, 8)
+
+
+@pytest.mark.parametrize("case", ["rows", "blocks", "no rows"])
+def test_batched_matvec_takes_the_layout_the_rule_gives(case):
+    """``matvec`` of [B, N] takes the batched row product where the row
+    layout is attached and the rule says so, the block SpMM otherwise."""
+    a = _flow_matrix() if case != "blocks" else sp.csr_matrix(
+        np.random.default_rng(4).standard_normal((64, 256)))
+    mat = TMatrix.from_scipy(a, dtype=torch.float64,
+                             device="cpu").with_tiled()
+    if case != "no rows":
+        mat = mat.with_rows(a)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(
+        (4, mat.padded_shape[1])))
+    takes_rows = case == "rows"
+    if mat.rows is not None:
+        assert T.prefer_rows_batched(
+            mat.rows.nnz, mat.rows.num_rows, mat.num_blocks,
+            mat.block_shape, 8, 4) == takes_rows
+    want = (T.rows_matmat_plain(mat.rows, x) if takes_rows
+            else T.tiled_matmat_plain(mat.tiled, x))
+    assert torch.equal(mat.matvec(x), want)
+    # matmat ([N, k]) runs as matvec(X.T)
+    assert torch.equal(mat.matmat(x.t().contiguous()), want.t())
+
+
+def test_batched_row_launch_counter_untouched_on_cpu():
+    a = _skewed_rows()
+    lay = TMatrix.from_scipy(a, dtype=torch.float64,
+                             device="cpu").with_rows(a).rows
+    before = T.launch_counts()
+    T.rows_matmat(lay, torch.ones(3, lay.num_cols, dtype=torch.float64))
+    assert T.launch_counts() == before and T.rows_matmat.launches == before[4]
+
+
+def test_batched_row_product_checks_its_input():
+    a = _skewed_rows()
+    lay = TMatrix.from_scipy(a, dtype=torch.float64,
+                             device="cpu").with_rows(a).rows
+    n = lay.num_cols
+    with pytest.raises(ValueError, match=f"\\[B, {n}\\]"):
+        T._check_rows(lay, torch.ones(n, dtype=torch.float64), batched=True)
+    with pytest.raises(TypeError):
+        T._check_rows(lay, torch.ones(2, n), batched=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        T._check_rows(lay, torch.ones(n, 2, dtype=torch.float64).t(),
+                      batched=True)
